@@ -1,0 +1,569 @@
+"""PropGraph — the user-facing property-graph API (mirrors Arachne's Python surface).
+
+Workflow (§V of the paper):
+
+    pg = PropGraph(backend="arr")                      # on the CUDA card
+    pg.add_edges_from(src, dst)                        # bulk DI build
+    pg.add_node_labels(nodes, labels)                  # strings ok
+    pg.add_edge_relationships(esrc, edst, rels)
+    pg.add_node_properties("age", nodes, ages)         # typed columns
+    vmask = pg.query_labels(["person", "place"])       # OR semantics
+    res = pg.match("(a:person {age > 30})-[:follows]->(b:place)")
+
+Ingestion follows the paper's three steps: (1) attribute values remapped to
+dense int ids (``AttributeMap``), (2) internal vertex/edge indices generated
+(vertex normalization + ``edge_lookup`` binary search), (3) bulk insert into
+the DIP-ARR store, which seals at its first query.
+
+This port covers the ``arr`` backend on one device.  The ``list``/``listd``
+backends, meshes, the overlay (writes after a store sealed, deletes,
+snapshots, forks, compaction), the frontier analytics and sampling are not
+ported yet and raise ``NotImplementedError``.
+
+``device=None`` means the CUDA card; with no card that raises
+``RuntimeError`` instead of quietly running on the CPU.  Pass
+``device="cpu"`` to run on the CPU.
+"""
+from __future__ import annotations
+
+import operator
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import bitplane, dip_arr
+from repro_torch.core.attr_map import AttributeMap
+from repro_torch.core.di import DIGraph, build_di, edge_lookup
+from repro_torch.core.queries import extract_subgraph, filtered_bfs, induce_edge_mask
+
+__all__ = ["PropGraph", "BACKENDS"]
+
+BACKENDS = ("arr", "list", "listd")
+
+# popcount of every byte value: per-attribute counts off a packed plane
+_POP8 = np.array([bin(i).count("1") for i in range(256)], np.uint8)
+
+# the reference runs with 64-bit types off: a column placed on its device
+# is narrowed to 32 bits, and predicates compare in the narrowed type
+_NARROW = {
+    np.dtype(np.int64): np.int32,
+    np.dtype(np.uint64): np.uint32,
+    np.dtype(np.float64): np.float32,
+    np.dtype(np.complex128): np.complex64,
+}
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` → the CUDA card, raising if there is none (never a silent
+    drop to the CPU); anything else is taken as given."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on the CUDA card by default and torch sees none; "
+                "pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def _row_counts(host: dip_arr.DIPArr) -> np.ndarray:
+    """(k,) entities per attribute row of a host plane."""
+    bm = np.ascontiguousarray(host.bitmap)
+    if host.packed:
+        return _POP8[bm.view(np.uint8)].sum(axis=1, dtype=np.int64)
+    return bm.sum(axis=1, dtype=np.int64)
+
+
+class _AttrStore:
+    """One DIP-ARR store over ``n_entities`` (vertices or edges).
+
+    Inserts collect (entity, attribute) pairs on the host; the first query
+    seals the store: the plane is built on the host, its per-attribute
+    counts taken, and it is placed on the device.  Writes after the seal
+    need the overlay, which is not ported yet.
+    """
+
+    def __init__(self, backend: str, n_entities: int, device: torch.device):
+        if backend != "arr":
+            raise NotImplementedError(f"the {backend!r} store is not ported yet")
+        self.backend = backend
+        self.n = n_entities
+        self.device = device
+        self.amap = AttributeMap()
+        self._pairs_e: List[np.ndarray] = []  # entity ids, insertion order
+        self._pairs_a: List[np.ndarray] = []  # attribute ids
+        self._store: Optional[dip_arr.DIPArr] = None
+        self._host: Optional[dip_arr.DIPArr] = None  # host build awaiting upload
+        self._counts: Optional[np.ndarray] = None
+        self._k_base: Optional[int] = None  # attribute rows in the sealed store
+
+    @classmethod
+    def from_plane(cls, values: Sequence[str], bitmap, *, k: int, n: int, packed: bool,
+                   device: torch.device) -> "_AttrStore":
+        """A sealed store holding an existing plane (uint32 or int32 words
+        when ``packed``, else int8 bytes) for the attribute ``values``."""
+        store = cls("arr", n, device)
+        store.amap = AttributeMap(values)
+        if k != store.k:
+            raise ValueError(f"plane has {k} rows for {len(store.amap)} attribute values")
+        host = dip_arr.DIPArr(bitmap=np.array(bitmap), k=k, n=n, packed=bool(packed))
+        store._counts = _row_counts(host)
+        store._store = dip_arr.to_device(host, device)
+        store._k_base = k
+        return store
+
+    @property
+    def sealed(self) -> bool:
+        return self._store is not None
+
+    @property
+    def packed(self) -> bool:
+        """True when the store holds (or will hold) the packed word plane;
+        captured at build time."""
+        for built in (self._store, self._host):
+            if built is not None:
+                return bool(built.packed)
+        return bitplane.packed_default()
+
+    def insert(self, entity_ids: np.ndarray, values: Sequence[str]) -> None:
+        if self.sealed:
+            raise NotImplementedError(
+                "adding attributes after the store answered a query needs the "
+                "overlay write path, which is not ported yet")
+        attr_ids = self.amap.encode(values)
+        attr_ids = np.broadcast_to(np.atleast_1d(attr_ids), np.shape(entity_ids)).ravel()
+        entity_ids = np.asarray(entity_ids, np.int32).ravel()
+        ok = entity_ids >= 0  # unmatched edge rows (edge_lookup -1) are dropped
+        self._pairs_e.append(entity_ids[ok])
+        self._pairs_a.append(attr_ids[ok].astype(np.int32))
+        self._counts = None
+        self._host = None
+
+    @property
+    def k(self) -> int:
+        return max(len(self.amap), 1)
+
+    def _build_host(self) -> dip_arr.DIPArr:
+        """Host plane built from the raw pairs, with its per-attribute
+        counts; stashed so a stats read followed by a query builds once."""
+        if self._host is not None:
+            return self._host
+        ent = np.concatenate(self._pairs_e) if self._pairs_e else np.zeros(0, np.int32)
+        att = np.concatenate(self._pairs_a) if self._pairs_a else np.zeros(0, np.int32)
+        host = dip_arr.build_dip_arr_host(ent, att, k=self.k, n=self.n)
+        self._counts = _row_counts(host)
+        self._host = host
+        self._k_base = self.k
+        return host
+
+    def finalize(self) -> dip_arr.DIPArr:
+        """Seal: place the host build on the device (once)."""
+        if self._store is None:
+            self._store = dip_arr.to_device(self._build_host(), self.device)
+            self._host = None
+        return self._store
+
+    def known_ids(self, values: Sequence[str]) -> np.ndarray:
+        """Interned attribute ids for ``values`` (unknown values dropped)."""
+        ids = np.atleast_1d(self.amap.lookup(list(values)))
+        return ids[ids >= 0].astype(np.int32)
+
+    def attr_counts(self) -> np.ndarray:
+        """(k,) per-attribute entity counts — the selectivity statistics the
+        planner orders joins with, derived on the host."""
+        if self._counts is None:
+            self._build_host()
+        counts = self._counts
+        if len(counts) < self.k:
+            counts = np.concatenate([counts, np.zeros(self.k - len(counts), counts.dtype)])
+        return counts
+
+    @property
+    def nnz(self) -> int:
+        """Stored (entity, attribute) pairs after dedupe — Σ attr_counts."""
+        return int(np.sum(self.attr_counts()))
+
+    def _mask(self, values: Sequence[str]) -> np.ndarray:
+        return self.amap.mask(values, self._k_base)
+
+    def _masks(self, values_list: Sequence[Sequence[str]]) -> torch.Tensor:
+        return torch.from_numpy(np.stack([self._mask(v) for v in values_list])).to(self.device)
+
+    def query_any(self, values: Sequence[str], *, impl: Optional[str] = None) -> torch.Tensor:
+        """(n,) bool — entities holding ANY of ``values``."""
+        ids = self.known_ids(values) if len(values) else np.zeros(0, np.int32)
+        if ids.size == 0:
+            # empty list / all-unknown values: definitionally empty
+            return torch.zeros(self.n, dtype=torch.bool, device=self.device)
+        store = self.finalize()
+        mask = torch.from_numpy(self._mask(values)).to(self.device)
+        return dip_arr.query_any(store, mask, impl=impl or "matvec")
+
+    def query_any_batched(self, values_list: Sequence[Sequence[str]], *,
+                          impl: Optional[str] = None) -> torch.Tensor:
+        """(Q, n) bool — Q OR-queries in one launch."""
+        store = self.finalize()
+        return dip_arr.query_any_batched(store, self._masks(values_list), impl=impl or "matvec")
+
+    def query_any_words(self, values: Sequence[str], *,
+                        impl: Optional[str] = None) -> torch.Tensor:
+        """Packed query: (ceil(n/32),) int32 words.  Every impl is the
+        packed OR-scan; ``impl`` is accepted for the planner's sake."""
+        if not self.packed:
+            raise ValueError("query_any_words requires a packed store")
+        ids = self.known_ids(values) if len(values) else np.zeros(0, np.int32)
+        if ids.size == 0:
+            return torch.zeros(bitplane.n_words(self.n), dtype=torch.int32, device=self.device)
+        store = self.finalize()
+        mask = torch.from_numpy(self._mask(values)).to(self.device)
+        return dip_arr.query_any_words(store, mask)
+
+    def query_any_batched_words(self, values_list: Sequence[Sequence[str]], *,
+                                impl: Optional[str] = None) -> torch.Tensor:
+        """(Q, ceil(n/32)) int32 — Q packed OR-queries, one launch."""
+        if not self.packed:
+            raise ValueError("query_any_batched_words requires a packed store")
+        store = self.finalize()
+        return dip_arr.query_any_batched_words(store, self._masks(values_list))
+
+    def to_arrays(self) -> dict:
+        """The sealed store as host arrays (see ``PropGraph.from_arrays``)."""
+        store = self.finalize()
+        bm = store.bitmap.cpu().numpy()
+        return {"values": self.amap.values, "bitmap": bm.view(np.uint32) if store.packed else bm,
+                "k": store.k, "n": store.n, "packed": store.packed}
+
+
+class PropGraph:
+    """A static, directed, labeled property multigraph over the DI structure,
+    on one device (``device=None`` → the CUDA card)."""
+
+    def __init__(self, backend: str = "arr", mesh=None, *, device=None):
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+        if backend != "arr":
+            raise NotImplementedError(f"the {backend!r} backend is not ported yet")
+        if mesh is not None:
+            raise NotImplementedError("multi-device meshes are not ported yet")
+        self.backend = backend
+        self.mesh = None
+        self.device = resolve_device(device)
+        self.graph: Optional[DIGraph] = None
+        self._node_map_host: Optional[np.ndarray] = None
+        self._vstore: Optional[_AttrStore] = None
+        self._estore: Optional[_AttrStore] = None
+        # typed property columns: name -> (values (x,), valid mask (x,))
+        self.vertex_props: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.edge_props: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        # monotone mutation counter + observers (cache invalidation contract)
+        self.version: int = 0
+        self._mutation_hooks: List = []
+
+    # ----------------------------------------------------------- mutation API
+    def on_mutation(self, hook) -> "PropGraph":
+        """Register ``hook(pg)`` to run after every mutating call; hooks see
+        the bumped ``version``."""
+        self._mutation_hooks.append(hook)
+        return self
+
+    def _bump_version(self) -> None:
+        self.version += 1
+        for hook in list(self._mutation_hooks):
+            hook(self)
+
+    # ------------------------------------------------------------- structure
+    def _set_graph(self, graph: DIGraph) -> None:
+        self.graph = graph
+        self._node_map_host = graph.node_map.cpu().numpy()
+
+    def add_edges_from(self, src, dst) -> "PropGraph":
+        """Bulk edge ingestion → DI build (normalize + sort + SEG) on the
+        graph's device.  Rebuilding the structure drops previously attached
+        attributes (fresh stores)."""
+        src = np.asarray(src)
+        if src.size == 0 and self.graph is not None:
+            return self  # no-op: nothing to rebuild from
+        self._set_graph(build_di(src, np.asarray(dst), device=self.device))
+        self._vstore = _AttrStore(self.backend, self.graph.n, self.device)
+        self._estore = _AttrStore(self.backend, max(self.graph.m, 1), self.device)
+        self._bump_version()
+        return self
+
+    def _require_graph(self) -> DIGraph:
+        if self.graph is None:
+            raise RuntimeError("call add_edges_from(...) first")
+        return self.graph
+
+    def _vertex_internal(self, nodes) -> np.ndarray:
+        """Original vertex ids → internal [0, n) ids (−1 if absent)."""
+        self._require_graph()
+        nm = self._node_map_host
+        nodes = np.asarray(nodes).ravel()
+        pos = np.clip(np.searchsorted(nm, nodes), 0, len(nm) - 1)
+        ok = nm[pos] == nodes
+        return np.where(ok, pos, -1).astype(np.int32)
+
+    def _edge_internal(self, src, dst) -> np.ndarray:
+        g = self._require_graph()
+        u = self._vertex_internal(src)
+        v = self._vertex_internal(dst)
+        idx = edge_lookup(g, torch.from_numpy(np.maximum(u, 0)).to(g.device),
+                          torch.from_numpy(np.maximum(v, 0)).to(g.device)).cpu().numpy()
+        return np.where((u >= 0) & (v >= 0), idx, -1).astype(np.int32)
+
+    # ------------------------------------------------------------ attributes
+    def add_node_labels(self, nodes, labels) -> "PropGraph":
+        self._require_graph()
+        if np.asarray(nodes).size == 0:
+            return self  # no-op
+        self._vstore.insert(self._vertex_internal(nodes), labels)
+        self._bump_version()
+        return self
+
+    def add_edge_relationships(self, src, dst, relationships) -> "PropGraph":
+        self._require_graph()
+        if np.asarray(src).size == 0:
+            return self  # no-op
+        self._estore.insert(self._edge_internal(src, dst), relationships)
+        self._bump_version()
+        return self
+
+    def _add_column(self, cols, size: int, idx: np.ndarray, name: str, values, fill) -> None:
+        vals = np.asarray(values)
+        col = np.full((size,), fill, dtype=vals.dtype)
+        valid = np.zeros((size,), dtype=bool)
+        ok = idx >= 0
+        col[idx[ok]] = vals[ok]
+        valid[idx[ok]] = True
+        cols[name] = self._place_column(col, valid)
+        self._bump_version()
+
+    def add_node_properties(self, name: str, nodes, values, fill=0) -> "PropGraph":
+        g = self._require_graph()
+        if np.asarray(nodes).size == 0:
+            return self  # no-op
+        self._add_column(self.vertex_props, g.n, self._vertex_internal(nodes), name, values, fill)
+        return self
+
+    def add_edge_properties(self, name: str, src, dst, values, fill=0) -> "PropGraph":
+        g = self._require_graph()
+        if np.asarray(src).size == 0:
+            return self  # no-op
+        self._add_column(self.edge_props, g.m, self._edge_internal(src, dst), name, values, fill)
+        return self
+
+    def _place_column(self, col, valid) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Narrow 64-bit columns to 32 bits as the reference's device
+        placement does (otherwise predicate masks split from it), then
+        place.  Torch compares no unsigned type wider than 8 bits on the
+        CPU, so uint16/uint32 columns are held as int64 (same values)."""
+        col = np.array(col)  # a private, writable copy (callers may pass read-only views)
+        col = col.astype(_NARROW.get(col.dtype, col.dtype), copy=False)
+        if col.dtype in (np.uint16, np.uint32):
+            col = col.astype(np.int64)
+        return (torch.from_numpy(np.ascontiguousarray(col)).to(self.device),
+                torch.from_numpy(np.array(valid, bool)).to(self.device))
+
+    # --------------------------------------------------------------- queries
+    def query_labels(self, labels, *, impl: Optional[str] = None) -> torch.Tensor:
+        """(n,) bool — vertices holding ANY of ``labels`` (§VI OR semantics)."""
+        self._require_graph()
+        return self._vstore.query_any(labels, impl=impl)
+
+    def query_relationships(self, relationships, *, impl: Optional[str] = None) -> torch.Tensor:
+        """(m,) bool — edges holding ANY of ``relationships``."""
+        self._require_graph()
+        return self._estore.query_any(relationships, impl=impl)
+
+    # ------------------------------------------------- typed property masks
+    _PRED_OPS = {
+        "==": operator.eq,
+        "!=": operator.ne,
+        "<": operator.lt,
+        "<=": operator.le,
+        ">": operator.gt,
+        ">=": operator.ge,
+    }
+
+    def _predicate_parts(self, kind: str, name: str, op: str,
+                         value) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Validate a predicate and return its raw ``(col, valid)`` column
+        pair: KeyError for an unknown property, ValueError for an unknown
+        op, TypeError for a string literal (columns are numeric)."""
+        cols = self.vertex_props if kind == "node" else self.edge_props
+        ckind = "vertex" if kind == "node" else "edge"
+        if name not in cols:
+            raise KeyError(f"unknown {ckind} property {name!r}; known: {sorted(cols)}")
+        if op not in self._PRED_OPS:
+            raise ValueError(f"unknown predicate op {op!r}; known: {sorted(self._PRED_OPS)}")
+        if isinstance(value, str):
+            raise TypeError(
+                f"{ckind} predicate {name!r} {op} {value!r}: string comparisons "
+                "are not supported on typed property columns — model "
+                "string-valued attributes as labels/relationships instead")
+        col, valid = cols[name]
+        if (isinstance(value, int) and not col.is_floating_point()
+                and not col.is_complex() and col.dtype != torch.bool):
+            # torch would wrap the literal into the column's type and
+            # compare silently wrong; the reference refuses it too
+            info = torch.iinfo(col.dtype)
+            if not info.min <= value <= info.max:
+                raise OverflowError(f"{ckind} predicate {name!r} {op} {value}: the literal "
+                                    f"does not fit the column's type {col.dtype}")
+        return col, valid
+
+    def _predicate_mask(self, kind: str, name: str, op: str, value) -> torch.Tensor:
+        col, valid = self._predicate_parts(kind, name, op, value)
+        return valid & self._PRED_OPS[op](col, value)
+
+    def vertex_predicate_mask(self, name: str, op: str, value) -> torch.Tensor:
+        """(n,) bool — vertices whose typed property ``name`` compares true
+        (entities without the property never match)."""
+        self._require_graph()
+        return self._predicate_mask("node", name, op, value)
+
+    def edge_predicate_mask(self, name: str, op: str, value) -> torch.Tensor:
+        """(m,) bool — edges whose typed property ``name`` compares true."""
+        self._require_graph()
+        return self._predicate_mask("edge", name, op, value)
+
+    # ------------------------------------------------------ pattern matching
+    def match(self, pattern, *, impl: Optional[str] = None, profile: bool = False):
+        """Declarative pattern query, e.g.
+        ``pg.match("(a:person {age > 30})-[:follows]->(b:person)")``.
+
+        Parses ``pattern`` (str or a pre-built ``Pattern``), plans it against
+        the DIP statistics and runs the mask pipeline.  Returns a
+        ``MatchResult`` whose masks cover exactly the entities in at least
+        one full match.  ``impl`` overrides the planner's per-mask choice.
+        """
+        if profile:
+            raise NotImplementedError("match(profile=True) needs the observability layer, "
+                                      "which is not ported yet")
+        from repro_torch.query import execute_plan, parse, plan_pattern
+
+        pat = parse(pattern) if isinstance(pattern, str) else pattern
+        return execute_plan(self, plan_pattern(self, pat, impl=impl))
+
+    def explain(self, pattern, *, impl: Optional[str] = None) -> str:
+        """The plan ``match`` would run, as text."""
+        from repro_torch.query import parse, plan_pattern
+
+        pat = parse(pattern) if isinstance(pattern, str) else pattern
+        return plan_pattern(self, pat, impl=impl).describe()
+
+    def subgraph(self, labels: Optional[Sequence[str]] = None,
+                 relationships: Optional[Sequence[str]] = None, *,
+                 impl: Optional[str] = None) -> Tuple[DIGraph, np.ndarray]:
+        """Intersect label/relationship query masks into an induced subgraph."""
+        g = self._require_graph()
+        vmask = (self.query_labels(labels, impl=impl) if labels is not None
+                 else torch.ones(g.n, dtype=torch.bool, device=g.device))
+        emask = (self.query_relationships(relationships, impl=impl) if relationships is not None
+                 else torch.ones(g.m, dtype=torch.bool, device=g.device))
+        return extract_subgraph(g, induce_edge_mask(g, vmask, emask))
+
+    def bfs(self, sources, labels: Optional[Sequence[str]] = None,
+            relationships: Optional[Sequence[str]] = None, max_iters: int = 64) -> torch.Tensor:
+        """Property-filtered BFS from original-id sources; (n,) depths."""
+        g = self._require_graph()
+        v_ok = self.query_labels(labels) if labels is not None else None
+        e_ok = self.query_relationships(relationships) if relationships is not None else None
+        srcs = torch.from_numpy(np.maximum(self._vertex_internal(sources), 0)).to(g.device)
+        return filtered_bfs(g, srcs, edge_allowed=e_ok, vertex_allowed=v_ok, max_iters=max_iters)
+
+    # ------------------------------------------------------- state transfer
+    def to_arrays(self) -> dict:
+        """The graph's state as host arrays: the DI fields, each sealed
+        store's attribute values and plane, the property columns with their
+        valid masks.  ``from_arrays`` rebuilds an equal graph from it."""
+        g = self._require_graph()
+
+        def cols(props):
+            return {k: (c.cpu().numpy(), v.cpu().numpy()) for k, (c, v) in props.items()}
+
+        return {
+            "graph": {"src": g.src.cpu().numpy(), "dst": g.dst.cpu().numpy(),
+                      "seg": g.seg.cpu().numpy(), "node_map": g.node_map.cpu().numpy(),
+                      "n": g.n, "m": g.m, "max_deg": g.max_deg},
+            "vstore": self._vstore.to_arrays(),
+            "estore": self._estore.to_arrays(),
+            "vertex_props": cols(self.vertex_props),
+            "edge_props": cols(self.edge_props),
+        }
+
+    @classmethod
+    def from_arrays(cls, arrays: dict, *, device=None) -> "PropGraph":
+        """A graph on ``device`` equal to the one ``arrays`` describes —
+        the layout ``to_arrays`` writes, which the reference package's
+        state fills as well (``np.asarray`` of its DI fields, its sealed
+        stores' planes and its columns).  Stores arrive sealed."""
+        pg = cls(backend="arr", device=device)
+        gd = arrays["graph"]
+
+        def t(a):  # a private copy: the caller's arrays may be read-only views
+            return torch.from_numpy(np.array(a)).to(pg.device)
+
+        pg._set_graph(DIGraph(
+            src=t(np.asarray(gd["src"], np.int32)), dst=t(np.asarray(gd["dst"], np.int32)),
+            seg=t(np.asarray(gd["seg"], np.int32)), node_map=t(gd["node_map"]),
+            n=int(gd["n"]), m=int(gd["m"]), max_deg=int(gd["max_deg"])))
+        for attr, key in (("_vstore", "vstore"), ("_estore", "estore")):
+            s = arrays[key]
+            setattr(pg, attr, _AttrStore.from_plane(
+                s["values"], s["bitmap"], k=int(s["k"]), n=int(s["n"]),
+                packed=bool(s["packed"]), device=pg.device))
+        for props, key in ((pg.vertex_props, "vertex_props"), (pg.edge_props, "edge_props")):
+            for name, (col, valid) in arrays.get(key, {}).items():
+                props[name] = pg._place_column(col, valid)
+        return pg
+
+    # ------------------------------------------------------------------ info
+    @property
+    def n_vertices(self) -> int:
+        return self._require_graph().n
+
+    @property
+    def n_edges(self) -> int:
+        return self._require_graph().m
+
+    def label_set(self) -> List[str]:
+        return self._vstore.amap.values if self._vstore else []
+
+    def relationship_set(self) -> List[str]:
+        return self._estore.amap.values if self._estore else []
+
+    def label_counts(self) -> Dict[str, int]:
+        """Per-label vertex counts, off the host-derived store stats."""
+        if self._vstore is None:
+            return {}
+        counts = self._vstore.attr_counts()
+        return {v: int(counts[i]) for i, v in enumerate(self._vstore.amap.values)}
+
+    def relationship_counts(self) -> Dict[str, int]:
+        """Per-relationship edge counts, off the host-derived store stats."""
+        if self._estore is None:
+            return {}
+        counts = self._estore.attr_counts()
+        return {v: int(counts[i]) for i, v in enumerate(self._estore.amap.values)}
+
+
+def _not_ported(name: str, part: str):
+    def method(self, *args, **kwargs):
+        raise NotImplementedError(f"PropGraph.{name} needs {part}, which is not ported yet")
+
+    method.__name__ = name
+    return method
+
+
+for _part, _names in (
+    ("the frontier analytics", ("khop", "components", "shortest_paths", "pagerank",
+                                "communities")),
+    ("neighborhood sampling", ("sample",)),
+    ("the overlay", ("insert_edges", "delete_vertices", "delete_edges",
+                     "update_node_properties", "update_edge_properties", "snapshot",
+                     "fork", "compact")),
+    ("the observability layer", ("explain_analyze",)),
+):
+    for _name in _names:
+        setattr(PropGraph, _name, _not_ported(_name, _part))

@@ -1,0 +1,10 @@
+"""repro_torch.kernels — hand-written CUDA kernels for Hopper (sm_90a).
+
+Each kernel package ships ``csrc/`` (the CUDA source), ``kernel.py`` (build
+at first use + ctypes launchers), ``ops.py`` (checked wrappers: CPU tensors
+→ the plain version, CUDA tensors → the kernel, launch counts) and
+``ref.py`` (the plain PyTorch versions).
+
+  bitmap_query — DIP-ARR attribute query: packed word OR-scan (B1) and
+                 byte OR-scan (B2)
+"""

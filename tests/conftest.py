@@ -17,6 +17,11 @@ except ImportError:
     pass
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips (with its reason) without one")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)

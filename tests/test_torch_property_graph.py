@@ -1,0 +1,202 @@
+"""Port ``repro_torch.core.PropGraph`` (arr, one device) against
+``repro.core.PropGraph``: ingest, label/relationship queries, predicate
+masks on int64 and float64 columns, counts, subgraphs and BFS from the same
+seeded raw inputs, bitwise; and ``from_arrays`` fed the reference graph's
+state."""
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import LABELS, RELS, as_np, build_pair, raw_inputs, ref_state
+from repro_torch.core import PropGraph
+from repro_torch.core import queries as tq
+
+
+@pytest.fixture(params=[(0, False), (1, False), (0, True)], ids=["packed0", "packed1", "byte0"])
+def pair(request):
+    seed, byte = request.param
+    return build_pair(raw_inputs(seed), byte=byte)
+
+
+def test_ingest_state_matches_reference(pair):
+    ref, port = pair
+    state = ref_state(ref)
+    got = port.to_arrays()
+    for f in ("src", "dst", "seg", "node_map", "n", "m", "max_deg"):
+        np.testing.assert_array_equal(got["graph"][f], state["graph"][f], err_msg=f)
+    for s in ("vstore", "estore"):
+        for f in ("values", "k", "n", "packed"):
+            assert got[s][f] == state[s][f], (s, f)
+        np.testing.assert_array_equal(got[s]["bitmap"], state[s]["bitmap"])
+    for props in ("vertex_props", "edge_props"):
+        assert set(got[props]) == set(state[props])
+        for name, (col, valid) in state[props].items():
+            np.testing.assert_array_equal(got[props][name][0], col)
+            assert got[props][name][0].dtype == col.dtype  # narrowed as the reference
+            np.testing.assert_array_equal(got[props][name][1], valid)
+
+
+def test_label_and_relationship_queries(pair):
+    ref, port = pair
+    queries = [[], ["nope"], ["rare"], ["mid", "common"], list(LABELS), ["rare", "nope"]]
+    for impl in (None, "scan", "matvec", "kernel"):
+        for q in queries:
+            np.testing.assert_array_equal(as_np(port.query_labels(q, impl=impl)),
+                                          as_np(ref.query_labels(q, impl=impl)))
+        for q in [[], ["follows"], ["likes", "knows"], list(RELS)]:
+            np.testing.assert_array_equal(as_np(port.query_relationships(q, impl=impl)),
+                                          as_np(ref.query_relationships(q, impl=impl)))
+    batched = [["rare"], ["mid", "common"], ["nope"]]
+    np.testing.assert_array_equal(as_np(port._vstore.query_any_batched(batched)),
+                                  as_np(ref._vstore.query_any_batched(batched)))
+    if port._vstore.packed:
+        np.testing.assert_array_equal(
+            as_np(port._vstore.query_any_batched_words(batched), words=True),
+            as_np(ref._vstore.query_any_batched_words(batched)))
+        np.testing.assert_array_equal(
+            as_np(port._estore.query_any_words(["likes"]), words=True),
+            as_np(ref._estore.query_any_words(["likes"])))
+
+
+@pytest.mark.parametrize("op", ["==", "!=", "<", "<=", ">", ">="])
+@pytest.mark.parametrize("value", [30, 29.5, -1, 0.5])
+def test_predicate_masks_int64_and_float64_columns(pair, op, value):
+    ref, port = pair
+    np.testing.assert_array_equal(as_np(port.vertex_predicate_mask("age", op, value)),
+                                  as_np(ref.vertex_predicate_mask("age", op, value)))
+    np.testing.assert_array_equal(as_np(port.edge_predicate_mask("w", op, value)),
+                                  as_np(ref.edge_predicate_mask("w", op, value)))
+
+
+def test_float64_column_narrows_like_reference():
+    """0.1 is not a float32: compared after narrowing, ``w == 0.1`` holds
+    for the narrowed value exactly as in the reference."""
+    raw = raw_inputs(3)
+    raw["ws"] = np.full(len(raw["ws"]), 0.1)
+    ref, port = build_pair(raw)
+    for op in ("==", ">", "<"):
+        np.testing.assert_array_equal(as_np(port.edge_predicate_mask("w", op, 0.1)),
+                                      as_np(ref.edge_predicate_mask("w", op, 0.1)))
+    assert as_np(port.edge_predicate_mask("w", "==", 0.1)).any()
+
+
+@pytest.mark.parametrize("value", [2**31, 2**33, -2**33])
+def test_out_of_range_integer_literal_raises_like_reference(value):
+    """An int64 column is an int32 column on the device; a literal outside
+    int32 is refused by both packages instead of wrapping."""
+    ref, port = build_pair(raw_inputs(0))
+    for pg in (ref, port):
+        with pytest.raises(OverflowError):
+            pg.vertex_predicate_mask("age", "<", value)
+        with pytest.raises(OverflowError):
+            pg.match(f"(a {{age < {value}}})")
+
+
+def test_uint32_column_negative_literal_splits_from_reference():
+    """ROADMAP C.4: on a uint32 column the reference wraps a negative
+    literal into uint32 (``u > -3`` is ``u > 4294967293``: nothing
+    matches); the port compares the values as integers (everything
+    matches).  Pinned so a change to either side shows."""
+    ref, port = build_pair(raw_inputs(0))
+    nodes = as_np(ref.graph.node_map)
+    vals = np.arange(len(nodes), dtype=np.uint32)
+    ref.add_node_properties("u", nodes, vals)
+    port.add_node_properties("u", nodes, vals)
+    np.testing.assert_array_equal(as_np(port.vertex_predicate_mask("u", ">", 5)),
+                                  as_np(ref.vertex_predicate_mask("u", ">", 5)))
+    assert not as_np(ref.vertex_predicate_mask("u", ">", -3)).any()
+    assert as_np(port.vertex_predicate_mask("u", ">", -3)).all()
+
+
+def test_counts_and_sets(pair):
+    ref, port = pair
+    assert port.label_counts() == ref.label_counts()
+    assert port.relationship_counts() == ref.relationship_counts()
+    assert port.label_set() == ref.label_set()
+    assert port.relationship_set() == ref.relationship_set()
+    assert (port.n_vertices, port.n_edges) == (ref.n_vertices, ref.n_edges)
+    assert port._vstore.nnz == ref._vstore.nnz
+
+
+def test_subgraph_and_bfs(pair):
+    ref, port = pair
+    rs, rk = ref.subgraph(labels=["mid", "common"], relationships=["likes"])
+    ps, pk = port.subgraph(labels=["mid", "common"], relationships=["likes"])
+    np.testing.assert_array_equal(pk, rk)
+    for f in ("src", "dst", "seg", "node_map"):
+        np.testing.assert_array_equal(as_np(getattr(ps, f)), as_np(getattr(rs, f)))
+    srcs = as_np(ref.graph.node_map)[:3]
+    np.testing.assert_array_equal(as_np(port.bfs(srcs)), as_np(ref.bfs(srcs)))
+    np.testing.assert_array_equal(as_np(port.bfs(srcs, labels=["common"], relationships=["likes"])),
+                                  as_np(ref.bfs(srcs, labels=["common"], relationships=["likes"])))
+
+
+def test_connected_entities_matches_reference(pair):
+    from repro.core import queries as rq
+    import jax.numpy as jnp
+
+    ref, port = pair
+    seed = np.zeros(port.n_vertices, bool)
+    seed[:2] = True
+    em = port.query_relationships(["follows"])
+    got = tq.connected_entities(port.graph, torch.from_numpy(seed), edge_allowed=em)
+    want = rq.connected_entities(ref.graph, jnp.asarray(seed),
+                                 edge_allowed=ref.query_relationships(["follows"]))
+    np.testing.assert_array_equal(as_np(got), as_np(want))
+
+
+@pytest.mark.parametrize("byte", [False, True])
+def test_from_arrays_of_reference_state(byte):
+    """The reference graph's state, pulled out with np.asarray, imports into
+    a port graph equal field for field to one the port built itself, and
+    matches bitwise."""
+    from _torch_parity import assert_same_match
+
+    ref, port = build_pair(raw_inputs(4), byte=byte)
+    imported = PropGraph.from_arrays(ref_state(ref), device="cpu")
+    a, b = imported.to_arrays(), port.to_arrays()
+    for f in a["graph"]:
+        np.testing.assert_array_equal(a["graph"][f], b["graph"][f])
+        if f in ("src", "dst", "seg", "node_map"):
+            assert getattr(imported.graph, f).dtype == getattr(port.graph, f).dtype
+    for s in ("vstore", "estore"):
+        assert {k: v for k, v in a[s].items() if k != "bitmap"} == \
+               {k: v for k, v in b[s].items() if k != "bitmap"}
+        np.testing.assert_array_equal(a[s]["bitmap"], b[s]["bitmap"])
+    assert imported.label_counts() == port.label_counts()
+    for props in ("vertex_props", "edge_props"):
+        for name in b[props]:
+            for x, y in zip(a[props][name], b[props][name]):
+                np.testing.assert_array_equal(x, y)
+    for text in ("(a:rare)-[:follows]->(b:common)",
+                 "(a {age > 20})-[e:likes {w < 0.5}]->(b)<-[:knows*1..2]-(c:mid)"):
+        assert_same_match(ref.match(text), imported.match(text))
+    # and the port's own state round-trips
+    again = PropGraph.from_arrays(port.to_arrays(), device="cpu")
+    assert_same_match(port.match("(a:mid)-[:likes*]->(b:rare)"),
+                      again.match("(a:mid)-[:likes*]->(b:rare)"))
+
+
+def test_unported_parts_raise():
+    with pytest.raises(NotImplementedError, match="list"):
+        PropGraph(backend="list", device="cpu")
+    with pytest.raises(ValueError, match="backend"):
+        PropGraph(backend="nope", device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        PropGraph(mesh=object(), device="cpu")
+    _, port = build_pair(raw_inputs(0))
+    with pytest.raises(NotImplementedError, match="overlay"):
+        port.add_node_labels(as_np(port.graph.node_map)[:2], "late")  # store already sealed
+    with pytest.raises(NotImplementedError, match="analytics"):
+        port.khop([0], 2)
+    with pytest.raises(NotImplementedError, match="overlay"):
+        port.snapshot()
+
+
+def test_version_and_mutation_hooks():
+    seen = []
+    pg = PropGraph(device="cpu").on_mutation(lambda g: seen.append(g.version))
+    pg.add_edges_from([1, 2], [2, 3])
+    pg.add_node_labels([1], ["x"])
+    pg.add_node_labels([], [])  # no-op: no bump
+    assert seen == [1, 2] and pg.version == 2
