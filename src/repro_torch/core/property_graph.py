@@ -15,10 +15,11 @@ dense int ids (``AttributeMap``), (2) internal vertex/edge indices generated
 (vertex normalization + ``edge_lookup`` binary search), (3) bulk insert into
 the DIP-ARR store, which seals at its first query.
 
-This port covers the ``arr`` backend on one device.  The ``list``/``listd``
-backends, meshes, the overlay (writes after a store sealed, deletes,
-snapshots, forks, compaction), the frontier analytics and sampling are not
-ported yet and raise ``NotImplementedError``.
+This port covers the ``arr`` backend on one device: ingest, ``match()``
+and ``sample()``.  The ``list``/``listd`` backends, meshes, the overlay
+(writes after a store sealed, deletes, snapshots, forks, compaction) and
+the frontier analytics are not ported yet and raise
+``NotImplementedError``.
 
 ``device=None`` means the CUDA card; with no card that raises
 ``RuntimeError`` instead of quietly running on the CPU.  Pass
@@ -252,9 +253,11 @@ class PropGraph:
         self._node_map_host: Optional[np.ndarray] = None
         self._vstore: Optional[_AttrStore] = None
         self._estore: Optional[_AttrStore] = None
-        # typed property columns: name -> (values (x,), valid mask (x,))
+        # typed property columns: name -> (values (x,), valid mask (x,)), and
+        # each column's type as the reference holds it (see _place_column)
         self.vertex_props: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
         self.edge_props: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._col_dtypes: Dict[Tuple[str, str], np.dtype] = {}
         # monotone mutation counter + observers (cache invalidation contract)
         self.version: int = 0
         self._mutation_hooks: List = []
@@ -328,41 +331,49 @@ class PropGraph:
         self._bump_version()
         return self
 
-    def _add_column(self, cols, size: int, idx: np.ndarray, name: str, values, fill) -> None:
+    def _add_column(self, kind: str, size: int, idx: np.ndarray, name: str, values,
+                    fill) -> None:
         vals = np.asarray(values)
         col = np.full((size,), fill, dtype=vals.dtype)
         valid = np.zeros((size,), dtype=bool)
         ok = idx >= 0
         col[idx[ok]] = vals[ok]
         valid[idx[ok]] = True
-        cols[name] = self._place_column(col, valid)
+        self._set_column(kind, name, col, valid)
         self._bump_version()
 
     def add_node_properties(self, name: str, nodes, values, fill=0) -> "PropGraph":
         g = self._require_graph()
         if np.asarray(nodes).size == 0:
             return self  # no-op
-        self._add_column(self.vertex_props, g.n, self._vertex_internal(nodes), name, values, fill)
+        self._add_column("node", g.n, self._vertex_internal(nodes), name, values, fill)
         return self
 
     def add_edge_properties(self, name: str, src, dst, values, fill=0) -> "PropGraph":
         g = self._require_graph()
         if np.asarray(src).size == 0:
             return self  # no-op
-        self._add_column(self.edge_props, g.m, self._edge_internal(src, dst), name, values, fill)
+        self._add_column("edge", g.m, self._edge_internal(src, dst), name, values, fill)
         return self
 
-    def _place_column(self, col, valid) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _set_column(self, kind: str, name: str, col, valid) -> None:
+        cols = self.vertex_props if kind == "node" else self.edge_props
+        cols[name], self._col_dtypes[(kind, name)] = self._place_column(col, valid)
+
+    def _place_column(self, col, valid) -> Tuple[Tuple[torch.Tensor, torch.Tensor], np.dtype]:
         """Narrow 64-bit columns to 32 bits as the reference's device
         placement does (otherwise predicate masks split from it), then
-        place.  Torch compares no unsigned type wider than 8 bits on the
-        CPU, so uint16/uint32 columns are held as int64 (same values)."""
+        place.  Returns the placed ``(col, valid)`` and the narrowed type,
+        which predicates wrap their literals into.  Torch compares no
+        unsigned type wider than 8 bits on the CPU, so uint16/uint32
+        columns are held as int64 (same values)."""
         col = np.array(col)  # a private, writable copy (callers may pass read-only views)
         col = col.astype(_NARROW.get(col.dtype, col.dtype), copy=False)
-        if col.dtype in (np.uint16, np.uint32):
+        dtype = col.dtype
+        if dtype in (np.uint16, np.uint32):
             col = col.astype(np.int64)
-        return (torch.from_numpy(np.ascontiguousarray(col)).to(self.device),
-                torch.from_numpy(np.array(valid, bool)).to(self.device))
+        return ((torch.from_numpy(np.ascontiguousarray(col)).to(self.device),
+                 torch.from_numpy(np.array(valid, bool)).to(self.device)), dtype)
 
     # --------------------------------------------------------------- queries
     def query_labels(self, labels, *, impl: Optional[str] = None) -> torch.Tensor:
@@ -386,10 +397,16 @@ class PropGraph:
     }
 
     def _predicate_parts(self, kind: str, name: str, op: str,
-                         value) -> Tuple[torch.Tensor, torch.Tensor]:
+                         value) -> Tuple[torch.Tensor, torch.Tensor, object]:
         """Validate a predicate and return its raw ``(col, valid)`` column
-        pair: KeyError for an unknown property, ValueError for an unknown
-        op, TypeError for a string literal (columns are numeric)."""
+        pair and the literal to compare with: KeyError for an unknown
+        property, ValueError for an unknown op, TypeError for a string
+        literal (columns are numeric).
+
+        An integer literal on an integer column is taken as the reference
+        takes it: it must fit int32 (``OverflowError`` otherwise), and is
+        then wrapped into the column's type — on a uint32 column ``-3`` is
+        ``4294967293``."""
         cols = self.vertex_props if kind == "node" else self.edge_props
         ckind = "vertex" if kind == "node" else "edge"
         if name not in cols:
@@ -402,18 +419,19 @@ class PropGraph:
                 "are not supported on typed property columns — model "
                 "string-valued attributes as labels/relationships instead")
         col, valid = cols[name]
-        if (isinstance(value, int) and not col.is_floating_point()
-                and not col.is_complex() and col.dtype != torch.bool):
-            # torch would wrap the literal into the column's type and
-            # compare silently wrong; the reference refuses it too
-            info = torch.iinfo(col.dtype)
-            if not info.min <= value <= info.max:
+        dtype = self._col_dtypes[(kind, name)]
+        if isinstance(value, int) and not isinstance(value, bool) and dtype.kind in "iu":
+            if not -2**31 <= value < 2**31:
                 raise OverflowError(f"{ckind} predicate {name!r} {op} {value}: the literal "
-                                    f"does not fit the column's type {col.dtype}")
-        return col, valid
+                                    f"does not fit int32")
+            bits = 8 * dtype.itemsize
+            value &= (1 << bits) - 1
+            if dtype.kind == "i" and value >= 1 << (bits - 1):
+                value -= 1 << bits
+        return col, valid, value
 
     def _predicate_mask(self, kind: str, name: str, op: str, value) -> torch.Tensor:
-        col, valid = self._predicate_parts(kind, name, op, value)
+        col, valid, value = self._predicate_parts(kind, name, op, value)
         return valid & self._PRED_OPS[op](col, value)
 
     def vertex_predicate_mask(self, name: str, op: str, value) -> torch.Tensor:
@@ -472,6 +490,132 @@ class PropGraph:
         srcs = torch.from_numpy(np.maximum(self._vertex_internal(sources), 0)).to(g.device)
         return filtered_bfs(g, srcs, edge_allowed=e_ok, vertex_allowed=v_ok, max_iters=max_iters)
 
+    # ---------------------------------------------------- fused sampling
+    def _sampling_view(self):
+        """(seg, dst, max_deg, perm) windows for the current graph.  Without
+        the overlay the sorted base graph is its own view (perm None)."""
+        g = self._require_graph()
+        return g.seg, g.dst, int(g.max_deg), None
+
+    def _sample_edge_words(self, pattern) -> Optional[torch.Tensor]:
+        """Packed (int32-word) edge-allowed bitmap for sampling under the
+        single-hop filter ``pattern``: an edge is sampleable iff it holds
+        the relationship, satisfies the predicates, its tail matches the
+        ``a`` constraint and its head matches ``b``.  None = every edge.
+        Cached per (version, pattern) so a served pattern packs once.  The
+        overlay's alive-edge mask joins this AND when the overlay is ported."""
+        from repro_torch.traverse import single_hop_filters
+
+        key = (self.version, None if pattern is None else str(pattern))
+        cache = getattr(self, "_sample_filter_cache", None)
+        if cache is not None and cache[0] == key:
+            return cache[1]
+        g = self._require_graph()
+        v_tail, v_head, e_ok, direction = single_hop_filters(self, pattern)
+        if direction != 1:
+            raise ValueError(
+                "sampling follows out-edges; reverse-direction filter "
+                "patterns (<-[...]-) are not supported")
+        if v_tail is not None or v_head is not None:
+            if e_ok is None:
+                e_ok = torch.ones(g.m, dtype=torch.bool, device=g.device)
+            if v_tail is not None:
+                e_ok = e_ok & v_tail[g.src]
+            if v_head is not None:
+                e_ok = e_ok & v_head[g.dst]
+        words = None if e_ok is None else bitplane.pack_mask(e_ok)
+        self._sample_filter_cache = (key, words)
+        return words
+
+    def _sample_rest(self, frontier, nbrs0, mask0, fanouts, base: int,
+                     seg, dstv, max_deg, ew_words):
+        """Layers 1..L of the layered loop and block assembly.  Layer l
+        draws from ``layer_key(base, l)`` — independent per layer."""
+        from repro_torch.graph.sampler import layer_key, local_block, sorted_unique
+        from repro_torch.kernels.neighbor_sample import neighbor_sample
+
+        g = self._require_graph()
+        layer_frontiers = [frontier]
+        layer_samples = [(frontier, nbrs0, mask0)]
+        layer_frontiers.append(
+            sorted_unique(np.concatenate([frontier, nbrs0[mask0]])).astype(np.int32))
+        for li in range(1, len(fanouts)):
+            cur = layer_frontiers[-1]
+            nb, _ei, mk = neighbor_sample(
+                seg, dstv, g.n, g.m, cur, layer_key(base, li), fanout=fanouts[li],
+                edge_words=ew_words, max_deg=max_deg)
+            nb = nb[:len(cur)].cpu().numpy()
+            mk = mk[:len(cur)].cpu().numpy()
+            layer_samples.append((cur, nb, mk))
+            layer_frontiers.append(
+                sorted_unique(np.concatenate([cur, nb[mk]])).astype(np.int32))
+        blocks = []
+        for li in range(len(fanouts) - 1, -1, -1):
+            dst_nodes, nb, mk = layer_samples[li]
+            blocks.append(local_block(dst_nodes, layer_frontiers[li + 1], nb, mk))
+        return blocks
+
+    def sample(self, seeds_or_pattern, fanouts, *, key: Optional[int] = None, seed: int = 0,
+               pattern=None, use_pallas: bool = False):
+        """Fused property-filtered neighborhood sampling — the
+        pattern→sample path.
+
+        ``seeds_or_pattern``: original vertex ids, or a Cypher-lite pattern
+        string — then the seeds are the vertices the pattern's FIRST node
+        variable binds, and the packed ``match`` combine's words feed the
+        window gather directly (the host reads one popcount scalar to pick
+        the capacity bucket).  ``fanouts``: per-layer caps, innermost first
+        (GraphSAGE order).  ``pattern``: an optional single-hop filter
+        constraining which edges may be sampled at EVERY layer
+        (relationship, predicates, endpoint labels).  ``key``/``seed``: the
+        integer base key (``key`` wins when given) — results are
+        reproducible given it (layer l draws from ``layer_key(base, l)``
+        only).  ``use_pallas`` is kept for signature parity with the
+        reference; here the CUDA kernel runs on every card call.
+
+        Returns ``SampledBlock``s innermost-first (``blocks[-1].dst_nodes``
+        = the seed batch); node ids are INTERNAL [0, n) ids — index
+        property columns directly, or map back through ``graph.node_map``.
+        Selection is uniform without replacement over each seed's filtered
+        adjacency: degree-0 seeds emit fully-masked slots, filtered degree
+        ≤ fanout keeps every allowed edge once.  Unknown seed ids drop out.
+        """
+        from repro_torch.graph.sampler import layer_key
+        from repro_torch.kernels.neighbor_sample import (
+            neighbor_sample,
+            neighbor_sample_from_words,
+        )
+
+        g = self._require_graph()
+        fanouts = [int(f) for f in fanouts]
+        if not fanouts or min(fanouts) < 1:
+            raise ValueError(f"fanouts must be ≥1 per layer, got {fanouts}")
+        seg, dstv, max_deg, _perm = self._sampling_view()
+        ew_words = self._sample_edge_words(pattern)
+        base = int(seed) if key is None else int(key)
+        k0 = layer_key(base, 0)
+        if isinstance(seeds_or_pattern, str) or hasattr(seeds_or_pattern, "nodes"):
+            res = self.match(seeds_or_pattern)
+            seed_mask = res.node_masks[0] if res.node_masks else res.vertex_mask
+            count = int(seed_mask.sum())  # the one host scalar read
+            idx, valid, nb, _ei, mk = neighbor_sample_from_words(
+                seg, dstv, g.n, g.m, bitplane.pack_mask(seed_mask), count, k0,
+                fanout=fanouts[0], edge_words=ew_words, max_deg=max_deg)
+            keep = valid.cpu().numpy()
+            frontier = idx.cpu().numpy()[keep].astype(np.int32)
+            nbrs0, mask0 = nb.cpu().numpy()[keep], mk.cpu().numpy()[keep]
+        else:
+            ids = self._vertex_internal(seeds_or_pattern)
+            ids = ids[ids >= 0]
+            nb, _ei, mk = neighbor_sample(
+                seg, dstv, g.n, g.m, ids, k0, fanout=fanouts[0],
+                edge_words=ew_words, max_deg=max_deg, use_pallas=use_pallas)
+            frontier = ids.astype(np.int32)
+            nbrs0 = nb[:len(ids)].cpu().numpy()
+            mask0 = mk[:len(ids)].cpu().numpy()
+        return self._sample_rest(frontier, nbrs0, mask0, fanouts, base,
+                                 seg, dstv, max_deg, ew_words)
+
     # ------------------------------------------------------- state transfer
     def to_arrays(self) -> dict:
         """The graph's state as host arrays: the DI fields, each sealed
@@ -479,8 +623,9 @@ class PropGraph:
         valid masks.  ``from_arrays`` rebuilds an equal graph from it."""
         g = self._require_graph()
 
-        def cols(props):
-            return {k: (c.cpu().numpy(), v.cpu().numpy()) for k, (c, v) in props.items()}
+        def cols(kind, props):
+            return {k: (c.cpu().numpy().astype(self._col_dtypes[(kind, k)], copy=False),
+                        v.cpu().numpy()) for k, (c, v) in props.items()}
 
         return {
             "graph": {"src": g.src.cpu().numpy(), "dst": g.dst.cpu().numpy(),
@@ -488,8 +633,8 @@ class PropGraph:
                       "n": g.n, "m": g.m, "max_deg": g.max_deg},
             "vstore": self._vstore.to_arrays(),
             "estore": self._estore.to_arrays(),
-            "vertex_props": cols(self.vertex_props),
-            "edge_props": cols(self.edge_props),
+            "vertex_props": cols("node", self.vertex_props),
+            "edge_props": cols("edge", self.edge_props),
         }
 
     @classmethod
@@ -513,9 +658,9 @@ class PropGraph:
             setattr(pg, attr, _AttrStore.from_plane(
                 s["values"], s["bitmap"], k=int(s["k"]), n=int(s["n"]),
                 packed=bool(s["packed"]), device=pg.device))
-        for props, key in ((pg.vertex_props, "vertex_props"), (pg.edge_props, "edge_props")):
+        for kind, key in (("node", "vertex_props"), ("edge", "edge_props")):
             for name, (col, valid) in arrays.get(key, {}).items():
-                props[name] = pg._place_column(col, valid)
+                pg._set_column(kind, name, col, valid)
         return pg
 
     # ------------------------------------------------------------------ info
@@ -559,7 +704,6 @@ def _not_ported(name: str, part: str):
 for _part, _names in (
     ("the frontier analytics", ("khop", "components", "shortest_paths", "pagerank",
                                 "communities")),
-    ("neighborhood sampling", ("sample",)),
     ("the overlay", ("insert_edges", "delete_vertices", "delete_edges",
                      "update_node_properties", "update_edge_properties", "snapshot",
                      "fork", "compact")),

@@ -264,9 +264,9 @@ def _execute_plan_packed(pg, plan: Plan) -> "MatchResult":
     for step in plan.predicate_steps:
         p = step.predicate
         # validation (KeyError/ValueError/TypeError) fires before any work
-        col, valid = pg._predicate_parts(step.kind, p.name, p.op, p.value)
+        col, valid, value = pg._predicate_parts(step.kind, p.name, p.op, p.value)
         (vpreds if step.kind == "node" else epreds)[step.slot].append(
-            (col, valid, pg._PRED_OPS[p.op], p.value))
+            (col, valid, pg._PRED_OPS[p.op], value))
     cands, emasks = _combine_packed(
         [node_words.get(i) for i in range(len(vpreds))],
         [edge_words.get(i) for i in range(len(epreds))],

@@ -100,3 +100,22 @@ def assert_same_match(ref_res, port_res) -> None:
     assert set(rb) == set(pb)
     for k in rb:
         np.testing.assert_array_equal(as_np(pb[k]), as_np(rb[k]))
+
+
+def random_csr(seed: int, n: int, w: int, *, zero_share: float = 0.25):
+    """A random CSR (seg (n+1,), dst (m,) int32) whose out-degrees run
+    past ``w`` (windows are cut) with a ``zero_share`` of degree-0
+    vertices, and m % 32 != 0 (a ragged last edge word), plus a random
+    packed edge filter (uint32 words) and its bool form."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(1, w + 5, n)
+    deg[rng.random(n) < zero_share] = 0
+    if deg.sum() % 32 == 0:
+        deg[0] += 1
+    seg = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    m = int(seg[-1])
+    dst = rng.integers(0, n, m).astype(np.int32)
+    edge_ok = rng.random(m) < 0.6
+    words = np.packbits(np.concatenate([edge_ok, np.zeros(-m % 32, bool)]),
+                        bitorder="little").view("<u4").astype(np.uint32)
+    return seg, dst, edge_ok, words

@@ -92,20 +92,63 @@ def test_out_of_range_integer_literal_raises_like_reference(value):
             pg.match(f"(a {{age < {value}}})")
 
 
-def test_uint32_column_negative_literal_splits_from_reference():
-    """ROADMAP C.4: on a uint32 column the reference wraps a negative
-    literal into uint32 (``u > -3`` is ``u > 4294967293``: nothing
-    matches); the port compares the values as integers (everything
-    matches).  Pinned so a change to either side shows."""
+def _uint32_pair():
     ref, port = build_pair(raw_inputs(0))
     nodes = as_np(ref.graph.node_map)
-    vals = np.arange(len(nodes), dtype=np.uint32)
+    vals = (np.arange(len(nodes), dtype=np.uint64) * 2654435761 % 2**32).astype(np.uint32)
+    vals[:3] = (0, 2**32 - 3, 2**32 - 1)
     ref.add_node_properties("u", nodes, vals)
     port.add_node_properties("u", nodes, vals)
-    np.testing.assert_array_equal(as_np(port.vertex_predicate_mask("u", ">", 5)),
-                                  as_np(ref.vertex_predicate_mask("u", ">", 5)))
-    assert not as_np(ref.vertex_predicate_mask("u", ">", -3)).any()
-    assert as_np(port.vertex_predicate_mask("u", ">", -3)).all()
+    return ref, port
+
+
+def _same_or_both_overflow(ref_fn, port_fn) -> None:
+    try:
+        want = as_np(ref_fn())
+    except OverflowError:
+        with pytest.raises(OverflowError):
+            port_fn()
+        return
+    np.testing.assert_array_equal(as_np(port_fn()), want)
+
+
+def test_uint32_column_negative_literal_splits_from_reference():
+    """ROADMAP C.4, repaired: on a uint32 column the reference wraps a
+    negative literal into uint32 (``u > -3`` is ``u > 4294967293``), and
+    so does the port now."""
+    ref, port = _uint32_pair()
+    np.testing.assert_array_equal(as_np(port.vertex_predicate_mask("u", ">", -3)),
+                                  as_np(ref.vertex_predicate_mask("u", ">", -3)))
+    assert as_np(port.vertex_predicate_mask("u", ">", -3)).sum() == 1
+    assert port.to_arrays()["vertex_props"]["u"][0].dtype == np.uint32
+
+
+@pytest.mark.parametrize("value", [-2**31 - 1, -2**31, -3, -1, 0, 2**31 - 1, 2**32 - 1, 2**32,
+                                   2**33])
+def test_uint32_column_literal_sweep_matches_reference(value):
+    """Each literal either compares as the reference's (wrapped into
+    uint32) or raises ``OverflowError`` in both — through the predicate
+    mask and through ``match()``."""
+    ref, port = _uint32_pair()
+    for op in ("==", "!=", "<", "<=", ">", ">="):
+        _same_or_both_overflow(lambda: ref.vertex_predicate_mask("u", op, value),
+                               lambda: port.vertex_predicate_mask("u", op, value))
+        text = f"(a {{u {op} {value}}})"
+        _same_or_both_overflow(lambda: ref.match(text).vertex_mask,
+                               lambda: port.match(text).vertex_mask)
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.uint8, np.int16, np.uint16, np.uint64])
+def test_narrow_integer_columns_wrap_literals_like_reference(dtype):
+    ref, port = build_pair(raw_inputs(1))
+    nodes = as_np(ref.graph.node_map)
+    vals = np.arange(len(nodes)).astype(dtype)
+    ref.add_node_properties("c", nodes, vals)
+    port.add_node_properties("c", nodes, vals)
+    for value in (-3, -1, 0, 7, 255, 256, 2**16, 2**31):
+        for op in ("==", ">", "<"):
+            _same_or_both_overflow(lambda: ref.vertex_predicate_mask("c", op, value),
+                                   lambda: port.vertex_predicate_mask("c", op, value))
 
 
 def test_counts_and_sets(pair):
