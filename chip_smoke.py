@@ -8,8 +8,9 @@ none of whose failures is caught:
 
 1. print the card's name and power limit; build the CUDA kernels from
    ``src/repro_torch/kernels/*/csrc``, one ``nvcc`` per source, together;
-2. hold every kernel against its plain PyTorch version on the card,
-   bitwise, over ragged shapes;
+2. hold every kernel against its plain PyTorch version on the card over
+   ragged shapes: bitwise, or for seg_mm's float sums within a bound on
+   reordered summation, and bitwise run to run;
 3. the main path at the paper's Tab. I ``graph3`` scale (10M edges drawn
    uniformly from a pool of 10M ids, §VII-A; 50 labels, 50 relationships,
    one int64 vertex column, one float64 edge column): build a
@@ -22,6 +23,17 @@ none of whose failures is caught:
    pattern; a predicate pattern under an edge filter), timed; every layer
    checked by the port's ``check_sample`` and every block held bitwise
    against the port on the CPU fed the card's priorities;
+3c. GNN serving on the same graph: a ``gcn-cora`` GCN at its published
+   widths (d_in 1,433, 16 hidden, 7 classes; random weights from
+   ``--seed``) answers node-classification requests for pattern-seeded
+   minibatches: ``PropGraph.sample`` under an edge filter, the union of the
+   blocks compacted into one ``GraphBatch`` whose features are gathered on
+   the card from a (n, 1433) float32 table, then ``GCN.forward`` with its
+   aggregation on the seg_mm kernel.  Eight ``minibatch`` requests of 1,024
+   seeds drawn from a predicate pattern's vertices, and one ``population``
+   request scoring every seed of a label pattern, timed and split into
+   sample, batch and forward; one request of each kind held against the
+   port on the CPU on the same blocks and features;
 4. the byte layout (``byte_masks()``): build it and answer a fused pattern,
    which runs the byte kernel; its masks must equal the packed graph's;
 5. time each kernel at the main path's shapes beside its plain version,
@@ -37,7 +49,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -55,9 +69,17 @@ N_ATTRS = 50  # §VII-A: 50 labels and 50 relationships
 SOURCES = {  # kernel family -> its CUDA source
     "bitmap_query": "src/repro_torch/kernels/bitmap_query/csrc/bitmap_query.cu",
     "neighbor_sample": "src/repro_torch/kernels/neighbor_sample/csrc/neighbor_sample.cu",
+    "seg_mm": "src/repro_torch/kernels/seg_mm/csrc/seg_mm.cu",
 }
 FANOUTS = [15, 10]  # GraphSAGE 15-10
 CHECK_ROWS = 4096  # rows of a sampled layer held to the Python-loop oracle
+D_FEAT, N_CLASSES = 1433, 7  # gcn-cora's published widths (Cora: 1,433 features, 7 classes)
+GNN_SEED_POOL = "(a:l0 {age > 50})"  # minibatch seeds are drawn from its vertices
+GNN_POPULATION = "(a:l0)"  # the population request scores every seed it binds
+GNN_FILTER = "(a)-[e {w < 0.5}]->(b)"  # only these edges may be sampled
+GNN_MINIBATCHES, GNN_BATCH = 8, 1024
+GNN_TOL = 1e-4  # card vs CPU logits, atol = rtol: cuBLAS and CPU matmuls round differently
+SUM_RTOL = 1e-5  # seg_mm vs a plain version summing in another order, relative to Σ|terms|
 
 
 def check(cond: bool, what: str) -> None:
@@ -66,26 +88,13 @@ def check(cond: bool, what: str) -> None:
 
 
 # ---------------------------------------------------------------- the data
-def random_uniform_graph(m: int, seed: int):
-    """§VII-A: (src, dst) uniform over a pool of ``m`` ids."""
-    rng = np.random.default_rng(seed)
-    return (rng.integers(0, m, size=m, dtype=np.int64),
-            rng.integers(0, m, size=m, dtype=np.int64))
-
-
-def attach_random_attributes(n_entities: int, seed: int):
-    """§VII-A: each drawn entity takes one of ``N_ATTRS`` attributes."""
-    rng = np.random.default_rng(seed)
-    entities = rng.choice(n_entities, size=n_entities, replace=True).astype(np.int64)
-    attrs = rng.integers(0, N_ATTRS, size=n_entities, dtype=np.int64)
-    return entities, attrs
-
-
 def build_graph(src, dst, seed: int, device, sync=lambda: None):
-    """Ingest the graph, its labels, relationships and two typed columns.
+    """Ingest the graph, its labels, relationships and two typed columns
+    (§VII-A: each drawn entity takes one of ``N_ATTRS`` attributes).
     Returns the graph and the seconds each ingest step took (the input
     data for a step is made before its clock starts)."""
     from repro_torch.core import PropGraph
+    from repro_torch.graph.generators import attach_random_attributes
 
     steps = {}
 
@@ -99,10 +108,10 @@ def build_graph(src, dst, seed: int, device, sync=lambda: None):
     timed("edges", pg.add_edges_from, src, dst)
     nodes = pg.graph.node_map.cpu().numpy()
     es, ed = pg.graph.src.cpu().numpy(), pg.graph.dst.cpu().numpy()
-    ents, attrs = attach_random_attributes(pg.n_vertices, seed + 1)
+    ents, attrs = attach_random_attributes(pg.n_vertices, n_attrs=N_ATTRS, seed=seed + 1)
     timed("labels", pg.add_node_labels, nodes[ents],
           np.array([f"l{i}" for i in range(N_ATTRS)])[attrs])
-    ents, attrs = attach_random_attributes(pg.n_edges, seed + 2)
+    ents, attrs = attach_random_attributes(pg.n_edges, n_attrs=N_ATTRS, seed=seed + 2)
     timed("relationships", pg.add_edge_relationships, nodes[es[ents]], nodes[ed[ents]],
           np.array([f"r{i}" for i in range(N_ATTRS)])[attrs])
     rng = np.random.default_rng(seed + 3)
@@ -217,6 +226,7 @@ def kernel_checks(device) -> None:
     check(ops.bitmap_query_packed(plane, mask.to(device)).equal(
         ref.bitmap_query_packed_ref(plane, mask.to(device))), "B1 single query")
     window_select_checks(device)
+    seg_mm_checks(device)
     torch.cuda.synchronize()
 
 
@@ -259,6 +269,42 @@ def window_select_checks(device) -> None:
                               f"words={None if ew is None else tuple(ew.shape)} ties={case % 2}")
                 case += 1
                 del args, start, deg, dst, pri, words
+
+
+def sums_close(got, want, scale) -> bool:
+    """Two sums of the same terms in another order agree within
+    ``SUM_RTOL`` of Σ|terms| (``scale``), the size a reordering error is
+    bounded by (and 1e-6 absolute for rows of a few tiny terms)."""
+    return bool(((got - want).abs() <= SUM_RTOL * scale + 1e-6).all())
+
+
+def seg_mm_checks(device) -> None:
+    """B5 against its plain version on the card over ragged shapes: every
+    D the path runs and wider, hub rows (degree 10,000 and more), empty
+    rows, unsorted dst, weighted and not; and bitwise run to run."""
+    import torch
+
+    from repro_torch.kernels.seg_mm import ops, ref
+
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    for d in (1, 7, 16, 64, 128, 300):
+        for n, e in ((1, 3), (37, 91), (5000, 40_000), (20_000, 60_000)):
+            src = torch.randint(0, n, (e,), dtype=torch.int32, generator=gen)
+            dst = torch.randint(0, n, (e,), dtype=torch.int32, generator=gen)
+            if n >= 5000:
+                dst[: e // 4] = 3  # a hub row of degree >= 10,000
+                dst[dst % 7 == 5] = 6  # rows 5, 12, 19, ... stay empty
+            x = torch.randn((n, d), generator=gen)
+            w = torch.rand(e, generator=gen)
+            x, src, dst, w = (t.to(device) for t in (x, src, dst, w))
+            for ew in (None, w):
+                got = ops.seg_mm(x, src, dst, n, edge_weight=ew)
+                want = ref.seg_mm_ref(x, src, dst, n, edge_weight=ew)
+                scale = ref.seg_mm_ref(x.abs(), src, dst, n,
+                                       edge_weight=None if ew is None else ew.abs())
+                what = f"B5 D={d} n={n} E={e} weighted={ew is not None}"
+                check(sums_close(got, want, scale), what)
+                check(got.equal(ops.seg_mm(x, src, dst, n, edge_weight=ew)), what + " run to run")
 
 
 def answer(pg, reqs, sync):
@@ -453,6 +499,224 @@ def sample_profile(request) -> dict:
                             for (f, line, fn), (_cc, nc, tt, _ct, _callers) in top]}
 
 
+# ----------------------------------------------------------- GNN serving
+def subgraph_batch(blocks, seed_int, feats, labels):
+    """Union-of-blocks compacted subgraph, as
+    ``examples/gnn_sampled_training.py:57`` builds it: ``blocks[0].src_nodes``
+    is the widest frontier, a sorted superset of every id in the chain, so
+    renumbering is one ``searchsorted`` per block; edges sorted by source
+    (DI order).  Block ids are the graph's internal ids, which index the
+    ``feats`` (n, F) and ``labels`` (n,) tables on their device; the rows
+    are gathered there.  ``seed_int``: the internal ids of the seeds (the
+    nodes the loss and the answer are taken over)."""
+    import torch
+
+    from repro_torch.models.gnn_common import GraphBatch
+
+    device = feats.device
+    sub = np.asarray(blocks[0].src_nodes)
+    es_l, ed_l = [], []
+    for b in blocks:
+        sn, dn = np.asarray(b.src_nodes), np.asarray(b.dst_nodes)
+        s, d = np.asarray(b.edge_src), np.asarray(b.edge_dst)
+        keep = np.asarray(b.edge_mask)
+        es_l.append(np.searchsorted(sub, sn[s[keep]]))
+        ed_l.append(np.searchsorted(sub, dn[d[keep]]))
+    e_src = np.concatenate(es_l).astype(np.int32)
+    e_dst = np.concatenate(ed_l).astype(np.int32)
+    order = np.argsort(e_src, kind="stable")
+    nmask = np.zeros(len(sub), bool)
+    nmask[np.searchsorted(sub, seed_int)] = True
+    rows = torch.from_numpy(sub.astype(np.int64)).to(device)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return GraphBatch(
+        x=feats[rows], pos=None, species=None,
+        edge_src=t(e_src[order]), edge_dst=t(e_dst[order]), edge_attr=None,
+        edge_mask=torch.ones(len(e_src), dtype=torch.bool, device=device),
+        node_mask=t(nmask), labels=labels[rows],
+        graph_ids=torch.zeros(len(sub), dtype=torch.int32, device=device),
+        n_nodes=len(sub), n_edges=len(e_src), n_graphs=1)
+
+
+@contextlib.contextmanager
+def recording_seg_mm():
+    """Record the inputs (x, src, dst, n, weights) of every B5 call made
+    through ``spmm_di`` inside the block."""
+    from repro_torch.kernels.seg_mm import ops
+
+    calls = []
+    saved = ops.seg_mm
+
+    def seg_mm(x, src_idx, dst_idx, n_nodes, *, edge_weight=None):
+        calls.append((x, src_idx, dst_idx, n_nodes, edge_weight))
+        return saved(x, src_idx, dst_idx, n_nodes, edge_weight=edge_weight)
+
+    ops.seg_mm = seg_mm
+    try:
+        yield calls
+    finally:
+        ops.seg_mm = saved
+
+
+def check_logits(model, batch, logits, seed_int, kind: str) -> dict:
+    """``logits`` (from the card) against the port on the CPU run on the
+    same batch, at ``GNN_TOL``.  Every seed's class must agree, except
+    where the CPU's two best logits lie within that tolerance of each
+    other: there either class is an answer within it (counted)."""
+    import torch
+
+    from repro_torch.models import gcn
+
+    cpu_params = {"layers": [{k: v.detach().cpu() for k, v in lp.items()}
+                             for lp in model.params()["layers"]]}
+    with torch.inference_mode():
+        want = gcn.forward(cpu_params, batch.to("cpu"), model.cfg)
+    got = logits.cpu()
+    check(got.shape == want.shape == (batch.n_nodes, N_CLASSES), f"{kind}: logits shape")
+    check(bool(torch.isfinite(got).all()), f"{kind}: logits finite")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    check(torch.allclose(got, want, rtol=GNN_TOL, atol=GNN_TOL),
+          f"{kind}: card logits within {GNN_TOL} of the CPU port's (max err {err})")
+    seeds = torch.from_numpy(np.flatnonzero(batch.node_mask.cpu().numpy()))
+    check(len(seeds) == len(seed_int), f"{kind}: one answer per seed")
+    g, w = got[seeds], want[seeds]
+    top2 = torch.topk(w, 2, dim=1).values
+    tied = (top2[:, 0] - top2[:, 1]) <= GNN_TOL + GNN_TOL * top2[:, 0].abs()
+    differ = g.argmax(dim=1) != w.argmax(dim=1)
+    check(not bool((differ & ~tied).any()), f"{kind}: every seed's class equals the CPU port's")
+    return {"max_abs_err": err, "seeds": len(seeds), "near_ties": int(tied.sum()),
+            "classes_differing_in_ties": int(differ.sum())}
+
+
+def forward_kernels(model, batch) -> dict:
+    """One more forward under ``torch.profiler``: the kernels it ran on the
+    card.  B5 must be among them, and no ``index_add_``, sparse-library
+    or compiled (Triton) kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.inference_mode():
+            model(batch)
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    names = sorted(e.key for e in on_card)
+    check(any("seg_mm_kernel" in k for k in names), "the GCN forward ran B5")
+    banned = [k for k in names if re.search(r"indexFunc|index_add|sparse|csrmm|triton", k, re.I)]
+    check(not banned, f"the GCN forward ran no index_add_, sparse or compiled kernel: {banned}")
+    return {"device_ms": sum(e.self_device_time_total for e in on_card) / 1e3,
+            "kernels": [(e.key[:60], e.self_device_time_total / 1e3, e.count) for e in
+                        sorted(on_card, key=lambda e: e.self_device_time_total, reverse=True)]}
+
+
+def gnn_phase(pg, seed: int, device: str, sync) -> dict:
+    """Phase 3c (module docstring).  Returns per-kind results and the
+    population request's B5 inputs for phase 5."""
+    import torch
+
+    from repro_torch.configs import gcn_cora
+    from repro_torch.kernels.seg_mm import ops
+    from repro_torch.models import gcn
+
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 is off for float32 matmuls")
+    n = pg.n_vertices
+    out = {}
+    if device == "cuda":  # the phase's own peak; the run's peak before it is kept
+        out["peak_mem_gib_before"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    feats = torch.randn((n, D_FEAT), generator=gen, device=device)
+    labels = torch.randint(0, N_CLASSES, (n,), generator=gen, device=device, dtype=torch.int32)
+    cfg = dataclasses.replace(gcn_cora.full_config(d_feat=D_FEAT, n_classes=N_CLASSES),
+                              spmm_impl="kernel")
+    model = gcn.GCN(cfg, gcn.init_params(gen, cfg, device=device))
+    res = pg.match(GNN_SEED_POOL)
+    pool_mask = (res.node_masks[0] if res.node_masks else res.vertex_mask).cpu().numpy()
+    pool = pg.graph.node_map.cpu().numpy()[np.flatnonzero(pool_mask)]
+    rng = np.random.default_rng(seed + 6)
+
+    def serve(seeds, key):
+        t0 = time.perf_counter()
+        blocks = pg.sample(seeds, FANOUTS, seed=key, pattern=GNN_FILTER)
+        sync()
+        t1 = time.perf_counter()
+        seed_int = blocks[-1].dst_nodes
+        batch = subgraph_batch(blocks, seed_int, feats, labels)
+        sync()
+        t2 = time.perf_counter()
+        with torch.inference_mode():
+            logits = model(batch)
+        sync()
+        t3 = time.perf_counter()
+        split = {"sample": (t1 - t0) * 1e3, "batch": (t2 - t1) * 1e3, "forward": (t3 - t2) * 1e3}
+        return blocks, seed_int, batch, logits, split
+
+    def summary(splits):
+        return {k: statistics.median(s[k] for s in splits)
+                for k in ("sample", "batch", "forward", "total")}
+
+    b5_inputs = None
+    ops.reset_launches()
+    builds0 = ops.LAYOUTS.builds
+    served = 0
+    # minibatch: 8 requests of 1,024 original ids drawn from the seed pool
+    picks = [rng.choice(pool, min(GNN_BATCH, len(pool)), replace=False)
+             for _ in range(GNN_MINIBATCHES + 1)]
+    splits = []
+    for k, ids in enumerate(picks):  # request 0 warms and is not timed
+        blocks, seed_int, batch, logits, split = serve(ids, k)
+        served += 1
+        split["total"] = sum(split.values())
+        if k:
+            splits.append(split)
+        if k == 1:
+            out_check = check_logits(model, batch, logits, seed_int, "minibatch")
+        del blocks, batch, logits
+    out["minibatch"] = {**summary(splits), "runs": splits, "check": out_check,
+                        "seeds": out_check["seeds"]}
+    # population: every seed of the label pattern, one warm run then 3
+    splits = []
+    for k in range(4):
+        if k == 1:
+            with recording_seg_mm() as calls:
+                blocks, seed_int, batch, logits, split = serve(GNN_POPULATION, 100 + k)
+            b5_inputs = calls
+            out_check = check_logits(model, batch, logits, seed_int, "population")
+            shape = {"n_sub": batch.n_nodes, "e_sub": batch.n_edges,
+                     "sampled_edges": [int(b.edge_mask.sum()) for b in blocks[::-1]]}
+        else:
+            blocks, seed_int, batch, logits, split = serve(GNN_POPULATION, 100 + k)
+        served += 1
+        split["total"] = sum(split.values())
+        if k:
+            splits.append(split)
+        del blocks, batch, logits
+    out["population"] = {**summary(splits), "runs": splits, "check": out_check,
+                         "seeds": out_check["seeds"], **shape}
+    launches = ops.launches[ops.SEG_MM]
+    out["b5_launches"] = launches
+    out["requests"] = served
+    out["layout_builds"] = ops.LAYOUTS.builds - builds0
+    if device == "cuda":
+        check(launches >= 2 * served, f"B5 launched {launches} times for {served} requests "
+                                      "(one per GCN layer)")
+        check(out["layout_builds"] == served, "one B5 layout per request, shared by both layers")
+        # one more population request under the profilers (card busy share, host hot
+        # spots), then one more forward alone (the kernels it ran)
+        out["population"]["profile"] = sample_profile(lambda: serve(GNN_POPULATION, 104))
+        batch = serve(GNN_POPULATION, 105)[2]
+        out["population"]["forward_profile"] = forward_kernels(model, batch)
+        del batch
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["b5_inputs"] = b5_inputs
+    del feats, labels, model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def window_select_entry(b3_inputs, launches: int) -> dict:
     """Phase 5's B3 line at the ``pattern`` request's layer-0 shape.  The
     bound counts what these inputs need: start and degree of every seed,
@@ -494,19 +758,77 @@ def window_select_entry(b3_inputs, launches: int) -> dict:
                       "window_lanes": int(lanes.sum()), "edge_words": ew is not None}}
 
 
+def seg_mm_entry(name: str, call, launches: int) -> dict:
+    """Phase 5's B5 line for one recorded call (x, src, dst, n, weights):
+    the kernel with its layout cached (``layout_ms`` beside it), the plain
+    version, and cuSPARSE's CSR product (``torch.sparse.mm``, a CSR built
+    once) as the library yardstick.  The bound counts the bytes a CSR
+    segment sum must move: per edge a column index and a weight, the row
+    pointers, once each row of x that some edge reads, and the output
+    written once; ``bound_design_ms`` adds the order entry per edge that
+    this design reads."""
+    import torch
+
+    from repro_torch.kernels.seg_mm import ops, ref
+
+    x, src, dst, n, w = call
+    got = ops.seg_mm(x, src, dst, n, edge_weight=w)
+    want = ref.seg_mm_ref(x, src, dst, n, edge_weight=w)
+    scale = ref.seg_mm_ref(x.abs(), src, dst, n, edge_weight=None if w is None else w.abs())
+    check(sums_close(got, want, scale), f"timed {name} agrees with its plain version")
+    layout = ops.get_layout(dst, n)
+    perm = layout.order.to(torch.int64)
+    values = torch.ones_like(src, dtype=torch.float32) if w is None else w
+    csr = torch.sparse_csr_tensor(layout.row_ptr.to(torch.int64), src.to(torch.int64)[perm],
+                                  values[perm], size=(n, x.shape[0]))
+    lib = torch.sparse.mm(csr, x)
+    e, d = src.numel(), x.shape[1]
+    x_rows = torch.unique(src).numel()
+    needed = e * (4 + (0 if w is None else 4)) + (n + 1) * 4 + x_rows * d * 4 + n * d * 4
+    return {"name": name, "route": "cuda", "source": SOURCES["seg_mm"],
+            "replaces": "src/repro/kernels/seg_mm/kernel.py:98",
+            "launches": launches,
+            "max_abs_err": float((got - want).abs().max()) if got.numel() else 0.0,
+            "ms": time_ms(lambda: ops.seg_mm(x, src, dst, n, edge_weight=w)),
+            "plain_ms": time_ms(lambda: ref.seg_mm_ref(x, src, dst, n, edge_weight=w), 10),
+            "bound_ms": needed / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": time_ms(lambda: torch.sparse.mm(csr, x), 10),
+            "layout_ms": time_ms(lambda: ops.build_layout(dst, n), 10),
+            "bound_design_ms": (needed + 4 * e) / HBM_BYTES_PER_S * 1e3,
+            "library_max_abs_err": float((lib - want).abs().max()) if lib.numel() else 0.0,
+            "shape": {"N_src": int(x.shape[0]), "x_rows_read": x_rows, "n": int(n), "E": int(e),
+                      "D": int(d)}}
+
+
+def full_graph_call(pg, seed: int):
+    """Phase 5's full-graph B5 shape: graph3's whole DI edge list with
+    ``degree_norm`` weights over a random (n, 16) x on the card."""
+    import torch
+
+    from repro_torch.graph.segment_ops import degree_norm
+
+    g = pg.graph
+    gen = torch.Generator(device=g.device).manual_seed(seed + 7)
+    x = torch.randn((g.n, 16), generator=gen, device=g.device)
+    src, dst = g.src.to(torch.int32).contiguous(), g.dst.to(torch.int32).contiguous()
+    return x, src, dst, g.n, degree_norm(src, dst, g.n)
+
+
 def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
     import torch
 
     from repro_torch.core import PropGraph, bitplane
+    from repro_torch.graph.generators import random_uniform_graph
     from repro_torch.kernels.bitmap_query import kernel, ops, ref
     from repro_torch.kernels.neighbor_sample import kernel as ns_kernel
+    from repro_torch.kernels.seg_mm import kernel as sm_kernel
 
     out = {"device": device}
     # --- phase 1: build the kernels, one nvcc per source, all at once
     t0 = time.perf_counter()
     if device == "cuda":
         with ThreadPoolExecutor(len(SOURCES)) as pool:
-            list(pool.map(lambda build: build(), (kernel.build, ns_kernel.build)))
+            list(pool.map(lambda build: build(), (kernel.build, ns_kernel.build, sm_kernel.build)))
     out["kernel_build_s"] = time.perf_counter() - t0
 
     # --- phase 2: kernels against their plain versions
@@ -515,7 +837,7 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
     print("phase 2 ok: kernels equal their plain versions", flush=True)
 
     # --- phase 3: the main path (packed layout)
-    src, dst = random_uniform_graph(edges, seed)
+    src, dst = random_uniform_graph(edges, seed=seed)
     ops.reset_launches()
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     t0 = time.perf_counter()
@@ -559,6 +881,16 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
     print("phase 3b timings", json.dumps({k: (v["median_ms"], v["b3_launches"])
                                           for k, v in out["sample"].items()}), flush=True)
     print("phase 3b ok: every layer passes check_sample and equals the CPU port bit for bit",
+          flush=True)
+
+    # --- phase 3c: GNN serving on the same graph
+    out["gnn"] = gnn_phase(pg, seed, device, sync)
+    b5_calls = out["gnn"].pop("b5_inputs")
+    print("phase 3c timings", json.dumps({
+        k: {p: out["gnn"][k][p] for p in ("total", "sample", "batch", "forward")}
+        for k in ("minibatch", "population")}), flush=True)
+    print("phase 3c ok: logits equal the CPU port's within", GNN_TOL,
+          json.dumps({k: out["gnn"][k]["check"] for k in ("minibatch", "population")}),
           flush=True)
 
     # --- phase 4: the byte layout
@@ -622,8 +954,14 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
         b3 = window_select_entry(sampled["b3_inputs"],
                                  sum(v["b3_launches"] for v in out["sample"].values()))
         check(b3["max_abs_err"] == 0, "timed B3 exact")
-        out["kernels"] = [b1, b2, b3]
-        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        b5_launches = out["gnn"]["b5_launches"]
+        b5 = [seg_mm_entry(f"seg_mm (B5) population layer {i + 1}", call, b5_launches)
+              for i, call in enumerate(b5_calls)]
+        b5.append(seg_mm_entry("seg_mm (B5) graph3 full propagation", full_graph_call(pg, seed),
+                               b5_launches))
+        out["kernels"] = [b1, b2, b3, *b5]
+        out["peak_mem_gib"] = max(torch.cuda.max_memory_allocated() / 2**30,
+                                  out["gnn"]["peak_mem_gib"], out["gnn"]["peak_mem_gib_before"])
     return out
 
 

@@ -9,4 +9,5 @@ at first use through the shared ``_build.py``, and the ctypes launchers),
                     byte OR-scan (B2)
   neighbor_sample — property-filtered window select for neighbor
                     sampling (B3)
+  seg_mm          — DI neighbourhood aggregation, a CSR segment sum (B5)
 """

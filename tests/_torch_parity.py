@@ -119,3 +119,30 @@ def random_csr(seed: int, n: int, w: int, *, zero_share: float = 0.25):
     words = np.packbits(np.concatenate([edge_ok, np.zeros(-m % 32, bool)]),
                         bitorder="little").view("<u4").astype(np.uint32)
     return seg, dst, edge_ok, words
+
+
+BATCH_FIELDS = ("x", "pos", "species", "edge_src", "edge_dst", "edge_attr", "edge_mask",
+                "node_mask", "labels", "graph_ids")
+
+
+def port_batch(ref_batch):
+    """The port's ``GraphBatch`` on the CPU holding the same arrays as a
+    reference ``GraphBatch``."""
+    from repro_torch.models.gnn_common import GraphBatch
+
+    arrays = {f: None if getattr(ref_batch, f) is None
+              else torch.from_numpy(np.array(getattr(ref_batch, f))) for f in BATCH_FIELDS}
+    return GraphBatch(**arrays, n_nodes=ref_batch.n_nodes, n_edges=ref_batch.n_edges,
+                      n_graphs=ref_batch.n_graphs)
+
+
+def with_padded_edges(ref_batch, seed: int, share: float = 0.2):
+    """``ref_batch`` with a seeded ``share`` of its edges marked padding
+    (``edge_mask`` False), as a sampled minibatch's unused slots are."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+    keep = rng.random(ref_batch.n_edges) >= share
+    return dataclasses.replace(ref_batch, edge_mask=jnp.asarray(keep))
