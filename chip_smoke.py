@@ -34,6 +34,18 @@ none of whose failures is caught:
    request scoring every seed of a label pattern, timed and split into
    sample, batch and forward; one request of each kind held against the
    port on the CPU on the same blocks and features;
+3d. recsys serving: ``dlrm-rm2`` at its published widths (26 tables of
+   1,000,000 x 64 f32 rows on the card, 6.66 GB; random weights from
+   ``--seed``) with its lookup on the embedding_bag kernel answers the
+   request kinds of ``RECSYS_SHAPES``: 16 ``serve_p99`` requests of 512
+   rows, a ``serve_bulk`` request of 262,144 rows, a ``retrieval_cand``
+   query against 1,000,000 candidates (top-100); batches from
+   ``dlrm_batch`` on the host, timed end to end; one request of each kind
+   held to the port on the CPU fed the rows the batch names.  Then the
+   graph-side user context (``examples/recsys_serving.py``'s second half):
+   ``sample_embed`` of 512 pattern-seeded users under the edge filter's
+   packed mask from an (n, 64) table, and each user's top-5 items over
+   1,000,000 rows, held to the CPU port replayed on the card's priorities;
 4. the byte layout (``byte_masks()``): build it and answer a fused pattern,
    which runs the byte kernel; its masks must equal the packed graph's;
 5. time each kernel at the main path's shapes beside its plain version,
@@ -70,6 +82,7 @@ SOURCES = {  # kernel family -> its CUDA source
     "bitmap_query": "src/repro_torch/kernels/bitmap_query/csrc/bitmap_query.cu",
     "neighbor_sample": "src/repro_torch/kernels/neighbor_sample/csrc/neighbor_sample.cu",
     "seg_mm": "src/repro_torch/kernels/seg_mm/csrc/seg_mm.cu",
+    "embedding_bag": "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
 }
 FANOUTS = [15, 10]  # GraphSAGE 15-10
 CHECK_ROWS = 4096  # rows of a sampled layer held to the Python-loop oracle
@@ -80,6 +93,13 @@ GNN_FILTER = "(a)-[e {w < 0.5}]->(b)"  # only these edges may be sampled
 GNN_MINIBATCHES, GNN_BATCH = 8, 1024
 GNN_TOL = 1e-4  # card vs CPU logits, atol = rtol: cuBLAS and CPU matmuls round differently
 SUM_RTOL = 1e-5  # seg_mm vs a plain version summing in another order, relative to Σ|terms|
+P99_REQUESTS = 16  # serve_p99 requests of RECSYS_SHAPES' batch
+RETRIEVAL_TOPK = 100
+RECSYS_TOL = 1e-4  # card vs CPU logits and scores, atol = rtol: cuBLAS and CPU sum in other orders
+CONTEXT_USERS, CONTEXT_FANOUT, CONTEXT_DIM, CONTEXT_TOPK = 512, 8, 64, 5
+CONTEXT_ITEMS = 1_000_000  # item rows: the context table's last rows
+ITEM_BLOCK = 131_072  # item rows scored at once: no (users, items) matrix is made
+BAG_TOL = 1e-5  # card vs CPU context bags (a masked mean summed in another order)
 
 
 def check(cond: bool, what: str) -> None:
@@ -167,6 +187,41 @@ def time_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def on_card(fn):
+    """``fn()`` once under ``torch.profiler``: the events that ran on the
+    card (kernels and copies), most time first, and the window's wall
+    seconds.  Only device-side events are kept: a host op's device time
+    repeats its kernels'."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.self_device_time_total, reverse=True)
+    return events, wall_s
+
+
+def kernel_device_ms(fn, name: str, reps: int = 20) -> dict:
+    """The card's own time per launch of the kernels whose name holds
+    ``name``, over ``reps`` calls of ``fn`` under ``torch.profiler``: the
+    mean over the launches the profiler recorded (``recorded``), without
+    the host's time between launches that ``time_ms`` sees when a launch is
+    shorter than the host's call."""
+    fn()
+    events, _ = on_card(lambda: [fn() for _ in range(reps)])
+    hits = [e for e in events if name in e.key]
+    recorded = sum(e.count for e in hits)
+    check(recorded > 0, f"the profiler recorded launches of {name}")
+    return {"ms": sum(e.self_device_time_total for e in hits) / 1e3 / recorded,
+            "recorded": recorded, "calls": reps}
+
+
 def max_abs_err(a, b) -> float:
     import torch
 
@@ -178,26 +233,13 @@ def device_profile(pg, reqs) -> dict:
     of the work that ran on the card (kernels and copies, one stream, so
     they do not overlap) against the window's wall time — the device's busy
     share; the profiler's own host cost lengthens the window — and the
-    kernels that took the most of it.  Only device-side events are summed:
-    a host op's device time repeats its kernels'."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _, text in reqs:
-            pg.match(text)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    on_card = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.self_device_time_total, reverse=True)
-    device_s = sum(e.self_device_time_total for e in on_card) / 1e6
+    kernels that took the most of it."""
+    events, wall_s = on_card(lambda: [pg.match(text) for _, text in reqs])
+    device_s = sum(e.self_device_time_total for e in events) / 1e6
     return {"wall_s": wall_s, "device_s": device_s,
             "busy_share": device_s / wall_s if device_s else "not measured",
             "top_ms": [(e.key[:60], e.self_device_time_total / 1e3, e.count)
-                       for e in on_card[:12]]}
+                       for e in events[:12]]}
 
 
 # ------------------------------------------------------------------ phases
@@ -226,6 +268,7 @@ def kernel_checks(device) -> None:
     check(ops.bitmap_query_packed(plane, mask.to(device)).equal(
         ref.bitmap_query_packed_ref(plane, mask.to(device))), "B1 single query")
     window_select_checks(device)
+    embedding_bag_checks(device)
     seg_mm_checks(device)
     torch.cuda.synchronize()
 
@@ -269,6 +312,39 @@ def window_select_checks(device) -> None:
                               f"words={None if ew is None else tuple(ew.shape)} ties={case % 2}")
                 case += 1
                 del args, start, deg, dst, pri, words
+
+
+def same_bits(got, want) -> bool:
+    """Equal values of one dtype and shape, NaN where and only where the
+    other has NaN."""
+    nan = want.isnan()
+    return (got.shape == want.shape and got.dtype == want.dtype
+            and bool((got.isnan() == nan).all()) and got[~nan].equal(want[~nan]))
+
+
+def embedding_bag_checks(device) -> None:
+    """B4 against its plain version, bitwise: the reference test's shapes
+    (b, f, mh, v, d), RM2's serve shape, ragged D (scalar loads, several
+    passes), MH = 0 and B = 0; each in f32 and bf16, with in-range
+    indices and with wrapped and out-of-range ones (NaN bags)."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import ops, ref
+
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    shapes = [(8, 4, 3, 100, 16), (16, 26, 1, 500, 64), (32, 2, 8, 50, 32),
+              (512, 26, 1, 100_000, 64), (37, 5, 2, 40, 7), (9, 3, 4, 30, 300),
+              (4, 2, 0, 10, 8), (0, 26, 1, 10, 64)]
+    for b, f, mh, v, d in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            for wild in (False, True):
+                tables = torch.randn((f, v, d), generator=gen).to(dtype).to(device)
+                lo, hi = (-v - 3, v + 3) if wild else (0, v)
+                idx = torch.randint(lo, hi, (b, f, mh), generator=gen,
+                                    dtype=torch.int32).to(device)
+                got = ops.embedding_bag_fields(tables, idx)
+                check(same_bits(got, ref.embedding_bag_ref(tables, idx)),
+                      f"B4 B={b} F={f} MH={mh} V={v} D={d} {dtype} wild={wild}")
 
 
 def sums_close(got, want, scale) -> bool:
@@ -472,18 +548,9 @@ def sample_profile(request) -> dict:
     import pstats
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        request()
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    on_card = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.self_device_time_total, reverse=True)
-    device_s = sum(e.self_device_time_total for e in on_card) / 1e6
+    events, wall_s = on_card(request)
+    device_s = sum(e.self_device_time_total for e in events) / 1e6
     host = cProfile.Profile()
     host.enable()
     request()
@@ -494,7 +561,7 @@ def sample_profile(request) -> dict:
     return {"wall_ms": wall_s * 1e3, "device_ms": device_s * 1e3,
             "busy_share": device_s / wall_s if device_s else "not measured",
             "top_device_ms": [(e.key[:60], e.self_device_time_total / 1e3, e.count)
-                              for e in on_card[:6]],
+                              for e in events[:6]],
             "top_host_ms": [(f"{Path(f).name}:{line}({fn})", tt * 1e3, nc)
                             for (f, line, fn), (_cc, nc, tt, _ct, _callers) in top]}
 
@@ -588,27 +655,24 @@ def check_logits(model, batch, logits, seed_int, kind: str) -> dict:
             "classes_differing_in_ties": int(differ.sum())}
 
 
-def forward_kernels(model, batch) -> dict:
-    """One more forward under ``torch.profiler``: the kernels it ran on the
-    card.  B5 must be among them, and no ``index_add_``, sparse-library
-    or compiled (Triton) kernel."""
+def forward_kernels(forward, what: str, kernel: str, banned: str) -> dict:
+    """One more ``forward()`` under ``torch.profiler``: the kernels it ran
+    on the card.  ``kernel`` (the path's own) must be among them, and none
+    whose name matches the ``banned`` pattern (library or compiled kernels
+    doing the path's work)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def run():
         with torch.inference_mode():
-            model(batch)
-        torch.cuda.synchronize()
-    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    names = sorted(e.key for e in on_card)
-    check(any("seg_mm_kernel" in k for k in names), "the GCN forward ran B5")
-    banned = [k for k in names if re.search(r"indexFunc|index_add|sparse|csrmm|triton", k, re.I)]
-    check(not banned, f"the GCN forward ran no index_add_, sparse or compiled kernel: {banned}")
-    return {"device_ms": sum(e.self_device_time_total for e in on_card) / 1e3,
-            "kernels": [(e.key[:60], e.self_device_time_total / 1e3, e.count) for e in
-                        sorted(on_card, key=lambda e: e.self_device_time_total, reverse=True)]}
+            forward()
+
+    events, _ = on_card(run)
+    names = sorted(e.key for e in events)
+    check(any(kernel in k for k in names), f"the {what} ran {kernel}")
+    found = [k for k in names if re.search(banned, k, re.I)]
+    check(not found, f"the {what} ran no kernel matching {banned}: {found}")
+    return {"device_ms": sum(e.self_device_time_total for e in events) / 1e3,
+            "kernels": [(e.key[:60], e.self_device_time_total / 1e3, e.count) for e in events]}
 
 
 def gnn_phase(pg, seed: int, device: str, sync) -> dict:
@@ -707,7 +771,9 @@ def gnn_phase(pg, seed: int, device: str, sync) -> dict:
         # spots), then one more forward alone (the kernels it ran)
         out["population"]["profile"] = sample_profile(lambda: serve(GNN_POPULATION, 104))
         batch = serve(GNN_POPULATION, 105)[2]
-        out["population"]["forward_profile"] = forward_kernels(model, batch)
+        out["population"]["forward_profile"] = forward_kernels(
+            lambda: model(batch), "GCN forward", "seg_mm_kernel",
+            r"indexFunc|index_add|sparse|csrmm|triton")
         del batch
         out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     out["b5_inputs"] = b5_inputs
@@ -715,6 +781,335 @@ def gnn_phase(pg, seed: int, device: str, sync) -> dict:
     if device == "cuda":
         torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------- recsys serving
+def held_rows(tables, idx):
+    """The table rows a batch names, on the host, and the batch's indices
+    into them: per field the sorted distinct rows, so the CPU port scores
+    the batch without a host copy of every table.  Indices must lie in
+    [0, V), as ``dlrm_batch`` draws them."""
+    import torch
+
+    f, v, d = tables.shape
+    check(bool(((idx >= 0) & (idx < v)).all()), "held_rows: indices in [0, V)")
+    cols, local = [], torch.empty_like(idx)
+    for j in range(f):
+        uniq, inv = torch.unique(idx[:, j], return_inverse=True)
+        cols.append(tables[j, uniq.to(torch.int64)])
+        local[:, j] = inv.to(torch.int32)
+    rows = torch.zeros((f, max(c.shape[0] for c in cols), d), dtype=tables.dtype,
+                       device=tables.device)
+    for j, c in enumerate(cols):
+        rows[j, :c.shape[0]] = c
+    return rows.cpu(), local.cpu()
+
+
+def cpu_params(params, tables) -> dict:
+    """``params``' MLPs on the host beside the given host ``tables``."""
+    return {"tables": tables,
+            **{k: [{n: t.cpu() for n, t in lp.items()} for lp in params[k]]
+               for k in ("bot", "top")}}
+
+
+def check_close(got, want, tol: float, what: str) -> float:
+    """``got`` (from the card) finite and within ``tol`` (atol = rtol) of
+    ``want`` (the CPU port); returns the largest difference."""
+    import torch
+
+    got = got.cpu()
+    check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{what}: finite")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    check(torch.allclose(got, want, rtol=tol, atol=tol),
+          f"{what}: within {tol} of the CPU port's (max err {err})")
+    return err
+
+
+def check_topk(vals, ids, want_vals, want_ids, tol: float, what: str) -> int:
+    """Top-k from the card against the CPU's top-(k+1), row by row: values
+    within ``tol``; ids equal except where the CPU's score at that rank lies
+    within ``tol`` of a neighbouring rank's (a near-tie either order
+    answers).  Returns how many ranks differ."""
+    k = vals.shape[-1]
+    vals, ids = vals.cpu().reshape(-1, k), ids.cpu().reshape(-1, k).to(want_ids.dtype)
+    want_vals, want_ids = want_vals.reshape(-1, k + 1), want_ids.reshape(-1, k + 1)
+    check_close(vals, want_vals[:, :k], tol, f"{what} top-{k} values")
+    gap = (want_vals[:, :-1] - want_vals[:, 1:]).abs() <= tol + tol * want_vals[:, 1:].abs()
+    near = gap[:, :k].clone()  # rank r ties with r + 1 ...
+    near[:, 1:] |= gap[:, :k - 1]  # ... or with r - 1
+    differ = ids != want_ids[:, :k]
+    check(not bool((differ & ~near).any()), f"{what} top-{k} ids equal the CPU's outside near-ties")
+    return int(differ.sum())
+
+
+def top_items(bags, items, k: int, block: int = ITEM_BLOCK):
+    """The ``k`` best ``items`` rows for each bag by dot product, scoring
+    ``block`` items at a time and merging the running best: no
+    (bags, items) matrix is made.  Returns (values, item rows)."""
+    import torch
+
+    best_v = best_i = None
+    for lo in range(0, items.shape[0], block):
+        v, i = torch.topk(bags @ items[lo:lo + block].T, k, dim=1)
+        i = i + lo
+        if best_v is not None:
+            v, j = torch.topk(torch.cat([best_v, v], dim=1), k, dim=1)
+            i = torch.gather(torch.cat([best_i, i], dim=1), 1, j)
+        best_v, best_i = v, i
+    return best_v, best_i
+
+
+def serve_dlrm(params, cfg, batch, device, sync):
+    """One scoring request end to end: the host batch uploaded, scored
+    (B4 on the card), the logits back on the host.  Returns (logits, ms)."""
+    import torch
+
+    from repro_torch.models import dlrm
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits = dlrm.forward(params, batch["dense"].to(device), batch["sparse"].to(device),
+                              cfg).cpu()
+    sync()
+    return logits, (time.perf_counter() - t0) * 1e3
+
+
+def recsys_phase(seed: int, device: str, sync) -> dict:
+    """Phase 3d's DLRM part (module docstring).  Returns per-kind results,
+    the tables and the serve batches' indices on the device for phase 5."""
+    import torch
+
+    from repro_torch.configs import dlrm_rm2
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.data import dlrm_batch
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.models import dlrm
+
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 is off for float32 matmuls")
+    cfg = dlrm_rm2.full_config() if device == "cuda" else dlrm_rm2.smoke_config()
+    out = {"config": cfg.name, "vocab": cfg.vocab_size, "embed_dim": cfg.embed_dim}
+    if device == "cuda":  # the phase's own peak
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(seed + 8)
+    t0 = time.perf_counter()
+    params = dlrm.init_params(gen, cfg, device=device)
+    sync()
+    out["init_s"] = time.perf_counter() - t0
+    out["table_gb"] = params["tables"].numel() * params["tables"].element_size() / 1e9
+
+    def batch(step, rows):  # requests arrive from the host
+        return dlrm_batch(step, batch=rows, vocab=cfg.vocab_size, seed=seed, device="cpu")
+
+    def held(kind, b, logits):
+        rows, local = held_rows(params["tables"], b["sparse"].to(device))
+        with torch.inference_mode():
+            want = dlrm.forward(cpu_params(params, rows), b["dense"], local, cfg)
+        return {"max_abs_err": check_close(logits, want, RECSYS_TOL, f"{kind} logits"),
+                "rows": len(logits)}
+
+    def launched() -> int:  # B4 launches since the last call
+        n = ops.launches[ops.EMBEDDING_BAG]
+        ops.reset_launches()
+        return n
+
+    ops.reset_launches()
+    served = {}
+    # serve_p99: 16 requests after a warm one
+    p99 = RECSYS_SHAPES["serve_p99"]["batch"]
+    batches = [batch(k, p99) for k in range(P99_REQUESTS + 1)]
+    runs = []
+    for k, b in enumerate(batches):
+        logits, ms = serve_dlrm(params, cfg, b, device, sync)
+        if k:
+            runs.append(ms)
+        if k == 1:
+            checked = held("serve_p99", b, logits)
+    served["serve_p99"] = len(batches)
+    out["serve_p99"] = {"median_ms": statistics.median(runs), "runs_ms": runs, "rows": p99,
+                        "b4_launches": launched(), "check": checked}
+    p99_idx = [b["sparse"].to(device) for b in batches[1:]]
+    # serve_bulk: one request, three timed runs after a warm one
+    bulk = RECSYS_SHAPES["serve_bulk"]["batch"]
+    b = batch(1000, bulk)
+    runs = [serve_dlrm(params, cfg, b, device, sync) for _ in range(4)]
+    served["serve_bulk"] = len(runs)
+    out["serve_bulk"] = {"median_ms": statistics.median(ms for _, ms in runs[1:]),
+                         "runs_ms": [ms for _, ms in runs[1:]], "rows": bulk,
+                         "b4_launches": launched(), "check": held("serve_bulk", b, runs[-1][0])}
+    bulk_idx = b["sparse"].to(device)
+    del runs
+    # retrieval_cand: one query against 1,000,000 random candidates, top-100
+    shape = RECSYS_SHAPES["retrieval_cand"]
+    cands = torch.randn((shape["n_candidates"], cfg.embed_dim), generator=gen, device=device)
+    q = batch(2000, shape["batch"])
+
+    def retrieve():
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            vals, ids = dlrm.retrieval_scores(params, q["dense"].to(device),
+                                              q["sparse"].to(device), cands, cfg,
+                                              top_k=RETRIEVAL_TOPK)
+            vals, ids = vals.cpu(), ids.cpu()
+        sync()
+        return vals, ids, (time.perf_counter() - t0) * 1e3
+
+    runs = [retrieve() for _ in range(4)]
+    served["retrieval_cand"] = len(runs)
+    vals, ids, _ = runs[-1]
+    rows, local = held_rows(params["tables"], q["sparse"].to(device))
+    with torch.inference_mode():
+        want_v, want_i = dlrm.retrieval_scores(cpu_params(params, rows), q["dense"], local,
+                                               cands.cpu(), cfg, top_k=RETRIEVAL_TOPK + 1)
+    differ = check_topk(vals, ids, want_v, want_i, RECSYS_TOL, "retrieval_cand")
+    out["retrieval_cand"] = {
+        "median_ms": statistics.median(ms for *_, ms in runs[1:]),
+        "runs_ms": [ms for *_, ms in runs[1:]],
+        "candidates": shape["n_candidates"], "top_k": RETRIEVAL_TOPK,
+        "b4_launches": launched(),
+        "check": {"max_abs_err": float((vals - want_v[:RETRIEVAL_TOPK]).abs().max()),
+                  "ids_differing_in_ties": differ}}
+    out["b4_launches"] = sum(out[k]["b4_launches"] for k in served)
+    out["requests"] = sum(served.values())
+    if device == "cuda":
+        for kind, n in served.items():
+            check(out[kind]["b4_launches"] >= n,
+                  f"{kind}: B4 launched {out[kind]['b4_launches']} times for {n} requests")
+        out["serve_p99"]["profile"] = sample_profile(
+            lambda: serve_dlrm(params, cfg, batches[1], device, sync))
+        out["serve_bulk"]["profile"] = sample_profile(
+            lambda: serve_dlrm(params, cfg, b, device, sync))
+        out["retrieval_cand"]["profile"] = sample_profile(retrieve)
+        dense, sparse = (batches[1][k].to(device) for k in ("dense", "sparse"))
+        out["serve_p99"]["forward_profile"] = forward_kernels(
+            lambda: dlrm.forward(params, dense, sparse, cfg), "DLRM forward",
+            "embedding_bag_kernel", r"EmbeddingBag|embedding_bag_(?!kernel)|triton")
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del cands
+    out["b4_calls"] = {"tables": params["tables"], "serve_p99": p99_idx, "serve_bulk": bulk_idx}
+    return out
+
+
+def context_phase(pg, seed: int, device: str, sync) -> dict:
+    """Phase 3d's graph-side user context (``examples/recsys_serving.py``'s
+    second half on graph3): the first ``CONTEXT_USERS`` vertices of the
+    seed pattern, their neighbourhoods sampled under the edge filter's
+    packed mask and pooled from an (n, 64) table (``sample_embed``), then
+    each user's top items over the table's last ``CONTEXT_ITEMS`` rows.
+    Held as phase 3b holds sampling: the CPU port replayed on the card's
+    priorities."""
+    import torch
+
+    from repro_torch.core import bitplane
+    from repro_torch.kernels.neighbor_sample import ops, sample_embed
+
+    g, n = pg.graph, pg.n_vertices
+    res = pg.match(GNN_SEED_POOL)
+    pool = (res.node_masks[0] if res.node_masks else res.vertex_mask).cpu().numpy()
+    users = np.flatnonzero(pool)[:CONTEXT_USERS].astype(np.int32)
+    words = bitplane.pack_mask(pg.match(GNN_FILTER).edge_mask)
+    gen = torch.Generator(device=device).manual_seed(seed + 9)
+    table = torch.randn((n, CONTEXT_DIM), generator=gen, device=device)
+    lo = max(0, n - CONTEXT_ITEMS)
+    key = seed + 10
+
+    def embed(seg, dst, tab, ew):
+        return sample_embed(seg, dst, n, pg.n_edges, users, key, tab, fanout=CONTEXT_FANOUT,
+                            edge_words=ew, max_deg=int(g.max_deg))
+
+    def request():
+        t0 = time.perf_counter()
+        bags, _nbrs, _eids, mask = embed(g.seg, g.dst, table, words)
+        sync()
+        t1 = time.perf_counter()
+        vals, rows = top_items(bags[:len(users)], table[lo:], CONTEXT_TOPK)
+        vals, rows = vals.cpu(), rows.cpu()
+        t2 = time.perf_counter()
+        return (bags, mask, vals, rows), {"sample_embed": (t1 - t0) * 1e3,
+                                          "top_items": (t2 - t1) * 1e3,
+                                          "total": (t2 - t0) * 1e3}
+
+    ops.reset_launches()
+    splits = [request()[1] for _ in range(6)][1:]  # the first warms
+    launches = ops.launches[ops.WINDOW_SELECT]
+    if device == "cuda":
+        check(launches >= len(splits) + 1, "every context request launched B3")
+    with recording() as rec:
+        (bags, mask, vals, rows), _ = request()
+    with replaying(rec["draws"]):
+        cpu_bags, cpu_nbrs, cpu_eids, cpu_mask = embed(g.seg.cpu(), g.dst.cpu(), table.cpu(),
+                                                       words.cpu())
+    _seeds, _valid, _ew, _fanout, (nbrs, eids, ok) = rec["layers"][0]
+    check(nbrs.cpu().equal(cpu_nbrs) and eids.cpu().equal(cpu_eids) and ok.cpu().equal(cpu_mask),
+          "context: card nbrs/eids/mask equal the CPU port's on the same priorities")
+    check(bool(mask.any()), "context: users sampled edges")
+    bag_err = check_close(bags, cpu_bags, BAG_TOL, "context bags")
+    # the blocked top items of the first 16 users with a non-empty context
+    # (an empty bag scores every item 0) against an unblocked CPU top-k
+    some = cpu_mask[:len(users)].any(dim=1)
+    few = torch.nonzero(some).flatten()[:16]
+    cpu_items = table[lo:].cpu()
+    want_v, want_i = torch.topk(cpu_bags[few] @ cpu_items.T, CONTEXT_TOPK + 1, dim=1)
+    tops = check_topk(vals[few], rows[few], want_v, want_i, RECSYS_TOL, "context items")
+    out = {"users": len(users), "users_with_context": int(some.sum()), "fanout": CONTEXT_FANOUT,
+           "items": n - lo, "sampled_edges": int(mask.sum()), "b3_launches": launches,
+           **{k: statistics.median(s[k] for s in splits)
+              for k in ("sample_embed", "top_items", "total")},
+           "runs": splits, "check": {"bags_max_abs_err": bag_err, "items_checked": len(few),
+                                     "items_differing_in_ties": tops}}
+    if device == "cuda":
+        out["profile"] = sample_profile(request)
+    del table, cpu_items
+    return out
+
+
+def embedding_bag_entry(name: str, tables, idxs, launches: int) -> dict:
+    """Phase 5's B4 line at one request kind's shape, timed over that
+    kind's batches in turn (``idxs``: 16 serve_p99 batches, about 54 MB of
+    rows, past the 50 MB L2; one serve_bulk batch, 1.5 GB).  The bound
+    counts what a batch needs: each distinct (field, row) it names read
+    once, its indices, its output written once (mean over ``idxs``).
+    The yardstick is ``F.embedding_bag`` over the flattened table stack.
+    ``device`` beside ``ms``: the kernel's own time per launch, which at
+    serve_p99 is shorter than the host's time to launch it."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels.embedding_bag import ops, ref
+
+    f, v, d = tables.shape
+    esize = tables.element_size()
+    field = torch.arange(f, device=tables.device).view(1, f, 1) * v
+    flat = [(idx.to(torch.int64) + field).view(-1, idx.shape[2]) for idx in idxs]
+    needed = statistics.mean(torch.unique(x).numel() * d * esize + idx.numel() * 4
+                             + idx.shape[0] * f * d * esize for x, idx in zip(flat, idxs))
+    got = ops.embedding_bag_fields(tables, idxs[0])
+    want = ref.embedding_bag_ref(tables, idxs[0])
+    check(same_bits(got, want), f"timed {name} equals its plain version")
+    table_rows = tables.view(f * v, d)
+    lib = torch.nn.functional.embedding_bag(flat[0], table_rows, mode="mean").view(got.shape)
+
+    def cycling(fn):
+        pending = itertools.cycle(range(len(idxs)))
+        return lambda: fn(next(pending))
+
+    reps = 50 if len(idxs) > 1 else 20
+    b, _, mh = idxs[0].shape
+    kernel_call = cycling(lambda i: ops.embedding_bag_fields(tables, idxs[i]))
+    return {"name": name, "route": "cuda", "source": SOURCES["embedding_bag"],
+            "replaces": "src/repro/kernels/embedding_bag/kernel.py:42",
+            "launches": launches,
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "ms": time_ms(kernel_call, reps),
+            "plain_ms": time_ms(cycling(lambda i: ref.embedding_bag_ref(tables, idxs[i])), 10),
+            "bound_ms": needed / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": time_ms(cycling(lambda i: torch.nn.functional.embedding_bag(
+                flat[i], table_rows, mode="mean")), reps),
+            "device": kernel_device_ms(kernel_call, "embedding_bag_kernel"),
+            "library_max_abs_err": float((lib.float() - want.float()).abs().max()),
+            "shape": {"B": b, "F": f, "MH": mh, "V": v, "D": d, "batches_cycled": len(idxs),
+                      "distinct_rows": torch.unique(flat[0]).numel()}}
 
 
 def window_select_entry(b3_inputs, launches: int) -> dict:
@@ -820,6 +1215,7 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
     from repro_torch.core import PropGraph, bitplane
     from repro_torch.graph.generators import random_uniform_graph
     from repro_torch.kernels.bitmap_query import kernel, ops, ref
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
     from repro_torch.kernels.neighbor_sample import kernel as ns_kernel
     from repro_torch.kernels.seg_mm import kernel as sm_kernel
 
@@ -828,7 +1224,8 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
     t0 = time.perf_counter()
     if device == "cuda":
         with ThreadPoolExecutor(len(SOURCES)) as pool:
-            list(pool.map(lambda build: build(), (kernel.build, ns_kernel.build, sm_kernel.build)))
+            list(pool.map(lambda build: build(), (kernel.build, ns_kernel.build, sm_kernel.build,
+                                                  eb_kernel.build)))
     out["kernel_build_s"] = time.perf_counter() - t0
 
     # --- phase 2: kernels against their plain versions
@@ -892,6 +1289,20 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
     print("phase 3c ok: logits equal the CPU port's within", GNN_TOL,
           json.dumps({k: out["gnn"][k]["check"] for k in ("minibatch", "population")}),
           flush=True)
+
+    # --- phase 3d: recsys serving (DLRM-RM2), then the graph-side user context
+    out["recsys"] = recsys_phase(seed, device, sync)
+    b4_calls = out["recsys"].pop("b4_calls")
+    out["context"] = context_phase(pg, seed, device, sync)
+    print("phase 3d timings", json.dumps({
+        **{k: (out["recsys"][k]["median_ms"], out["recsys"][k]["b4_launches"])
+           for k in ("serve_p99", "serve_bulk", "retrieval_cand")},
+        "context": (out["context"]["total"], out["context"]["b3_launches"])}), flush=True)
+    print("phase 3d ok: logits and top-k equal the CPU port's within", RECSYS_TOL,
+          "and the context equals it on the same priorities",
+          json.dumps({**{k: out["recsys"][k]["check"]
+                         for k in ("serve_p99", "serve_bulk", "retrieval_cand")},
+                      "context": out["context"]["check"]}), flush=True)
 
     # --- phase 4: the byte layout
     ops.reset_launches()
@@ -959,9 +1370,17 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
               for i, call in enumerate(b5_calls)]
         b5.append(seg_mm_entry("seg_mm (B5) graph3 full propagation", full_graph_call(pg, seed),
                                b5_launches))
-        out["kernels"] = [b1, b2, b3, *b5]
+        b4 = [embedding_bag_entry(f"embedding_bag (B4) {kind}", b4_calls["tables"],
+                                  idxs if isinstance(idxs, list) else [idxs],
+                                  out["recsys"][kind]["b4_launches"])
+              for kind, idxs in (("serve_p99", b4_calls["serve_p99"]),
+                                 ("serve_bulk", b4_calls["serve_bulk"]))]
+        check(all(e["max_abs_err"] == 0 for e in b4), "timed B4 exact")
+        out["kernels"] = [b1, b2, b3, *b4, *b5]
         out["peak_mem_gib"] = max(torch.cuda.max_memory_allocated() / 2**30,
-                                  out["gnn"]["peak_mem_gib"], out["gnn"]["peak_mem_gib_before"])
+                                  out["gnn"]["peak_mem_gib"], out["gnn"]["peak_mem_gib_before"],
+                                  out["recsys"]["peak_mem_gib"])
+    del b4_calls
     return out
 
 

@@ -1,0 +1,18 @@
+"""Where the port runs: the CUDA card unless the caller names a device."""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` → the CUDA card, raising if there is none (never a silent
+    drop to the CPU); anything else is taken as given."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on the CUDA card by default and torch sees none; "
+                "pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)

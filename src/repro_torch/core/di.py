@@ -19,6 +19,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.device import resolve_device
+
 __all__ = [
     "DIGraph",
     "build_di",
@@ -88,18 +90,22 @@ def build_di(
 ) -> DIGraph:
     """Construct a DI graph from raw endpoint arrays (§V ingestion path):
     (1) vertex-id normalization to [0, n), (2) lexicographic (src, dst)
-    sort, (3) SEG offsets.  Runs on ``device`` (default: where ``src``
-    lies).  Endpoints are narrowed to int32 first, as the reference does.
+    sort, (3) SEG offsets.  Runs on ``device``; by default a tensor ``src``
+    keeps its device and host input (numpy, lists) goes to the CUDA card
+    (``resolve_device``: with no card that raises rather than running on
+    the CPU).  Endpoints are narrowed to int32 first, as the reference does.
 
     ``normalize`` remaps original ids to dense [0, n) via sorted-unique;
     ``dedupe`` collapses structural multi-edges ((u, v) repeated).
     """
+    if device is None and torch.is_tensor(src):
+        device = src.device
+    device = resolve_device(device)
     src = src if torch.is_tensor(src) else torch.as_tensor(np.asarray(src))
     dst = dst if torch.is_tensor(dst) else torch.as_tensor(np.asarray(dst))
     if src.shape != dst.shape or src.dim() != 1:
         raise ValueError(f"src/dst must be equal-length 1-D, got {tuple(src.shape)} "
                          f"vs {tuple(dst.shape)}")
-    device = src.device if device is None else torch.device(device)
     src = src.to(device=device, dtype=torch.int32)
     dst = dst.to(device=device, dtype=torch.int32)
 

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bitplane
+from repro_torch.core.device import resolve_device
 from repro_torch.kernels.bitmap_query import ops as _ops
 
 __all__ = [
@@ -90,8 +91,10 @@ def to_device(host: DIPArr, device) -> DIPArr:
 
 
 def build_dip_arr(entity_ids, attr_ids, *, k: int, n: int,
-                  packed: bool | None = None, device="cpu") -> DIPArr:
-    """Bulk build through ``build_dip_arr_host``, then placed on ``device``."""
+                  packed: bool | None = None, device=None) -> DIPArr:
+    """Bulk build through ``build_dip_arr_host``, then placed on ``device``
+    (None: the CUDA card, raising if there is none)."""
+    device = resolve_device(device)
     return to_device(build_dip_arr_host(entity_ids, attr_ids, k=k, n=n, packed=packed),
                      device)
 

@@ -35,10 +35,11 @@ import torch
 
 from repro_torch.core import bitplane, dip_arr
 from repro_torch.core.attr_map import AttributeMap
+from repro_torch.core.device import resolve_device
 from repro_torch.core.di import DIGraph, build_di, edge_lookup
 from repro_torch.core.queries import extract_subgraph, filtered_bfs, induce_edge_mask
 
-__all__ = ["PropGraph", "BACKENDS"]
+__all__ = ["PropGraph", "BACKENDS", "resolve_device"]
 
 BACKENDS = ("arr", "list", "listd")
 
@@ -53,18 +54,6 @@ _NARROW = {
     np.dtype(np.float64): np.float32,
     np.dtype(np.complex128): np.complex64,
 }
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` → the CUDA card, raising if there is none (never a silent
-    drop to the CPU); anything else is taken as given."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch runs on the CUDA card by default and torch sees none; "
-                "pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def _row_counts(host: dip_arr.DIPArr) -> np.ndarray:

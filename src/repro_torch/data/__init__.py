@@ -1,5 +1,7 @@
 """repro_torch.data — batch builders.  Ported so far: the graph batches of
-``data/graph.py`` (``synthetic_graph_batch``, ``build_triplets``)."""
+``data/graph.py`` (``synthetic_graph_batch``, ``build_triplets``) and the
+DLRM batches of ``data/recsys.py`` (``dlrm_batch``)."""
 from repro_torch.data.graph import build_triplets, synthetic_graph_batch
+from repro_torch.data.recsys import dlrm_batch
 
-__all__ = ["build_triplets", "synthetic_graph_batch"]
+__all__ = ["build_triplets", "synthetic_graph_batch", "dlrm_batch"]

@@ -14,7 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.property_graph import resolve_device
+from repro_torch.core.device import resolve_device
 from repro_torch.models.gnn_common import GraphBatch
 
 __all__ = ["synthetic_graph_batch", "build_triplets", "TRIPLET_CAP_FACTOR"]

@@ -9,5 +9,9 @@ at first use through the shared ``_build.py``, and the ctypes launchers),
                     byte OR-scan (B2)
   neighbor_sample — property-filtered window select for neighbor
                     sampling (B3)
+  embedding_bag   — DLRM's mean-pooled multi-hot gather (B4)
   seg_mm          — DI neighbourhood aggregation, a CSR segment sum (B5)
 """
+from repro_torch.kernels.embedding_bag import embedding_bag_fields
+
+__all__ = ["embedding_bag_fields"]

@@ -14,7 +14,7 @@ from typing import Dict, List
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.property_graph import resolve_device
+from repro_torch.core.device import resolve_device
 from repro_torch.graph.segment_ops import gather_scatter, segment_softmax, segment_sum
 from repro_torch.models.gcn import node_nll
 from repro_torch.models.gnn_common import GraphBatch, params_from_numpy

@@ -21,7 +21,7 @@ from typing import Dict, List
 
 import torch
 
-from repro_torch.core.property_graph import resolve_device
+from repro_torch.core.device import resolve_device
 from repro_torch.graph.segment_ops import degree_norm, segment_count, spmm_di
 from repro_torch.models.gnn_common import GraphBatch, params_from_numpy
 from repro_torch.nn.layers import init_linear, linear

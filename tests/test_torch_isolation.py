@@ -56,3 +56,34 @@ def test_propgraph_defaults_to_cuda_and_refuses_without_it(monkeypatch):
         PropGraph(backend="arr")
     assert PropGraph(device="cpu").device.type == "cpu"
 
+
+
+def test_build_di_host_input_defaults_to_cuda_and_refuses_without_it(monkeypatch):
+    """Host endpoints (numpy, lists) with no ``device`` go to the card, as
+    ``PropGraph`` does; a tensor keeps its device."""
+    import numpy as np
+
+    from repro_torch.core import di
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    src, dst = np.array([3, 1, 2]), np.array([1, 2, 3])
+    for a, b in ((src, dst), (src.tolist(), dst.tolist())):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            di.build_di(a, b)
+    assert di.build_di(torch.from_numpy(src), torch.from_numpy(dst)).device.type == "cpu"
+    assert di.build_di(src, dst, device="cpu").device.type == "cpu"
+
+
+def test_build_dip_arr_defaults_to_cuda_and_refuses_without_it(monkeypatch):
+    from repro_torch.core import dip_arr
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dip_arr.build_dip_arr([0, 5], [1, 0], k=2, n=6)
+    assert dip_arr.build_dip_arr([0, 5], [1, 0], k=2, n=6, device="cpu").bitmap.device.type == "cpu"
+
+
+def test_resolve_device_keeps_its_old_import_path():
+    from repro_torch.core import device, property_graph
+
+    assert property_graph.resolve_device is device.resolve_device

@@ -1,13 +1,15 @@
 """The hand-written CUDA kernels (bitmap_query B1/B2, neighbor_sample B3,
-seg_mm B5) against their plain PyTorch versions on the card, with their
-launch counts: bitwise, or for B5's float sums within a bound on
-reordered summation (and bitwise run to run).  Needs an NVIDIA
+embedding_bag B4, seg_mm B5) against their plain PyTorch versions on the
+card, with their launch counts: bitwise, or for B5's float sums within a
+bound on reordered summation (and bitwise run to run).  Needs an NVIDIA
 card (marker ``cuda``; skips without one).  Imports neither JAX nor the
 reference package, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -16,10 +18,17 @@ import torch
 from _torch_parity import random_csr
 from repro_torch.core import bitplane
 from repro_torch.kernels.bitmap_query import ops, ref
+from repro_torch.kernels.embedding_bag import ops as eb_ops
+from repro_torch.kernels.embedding_bag import ref as eb_ref
 from repro_torch.kernels.neighbor_sample import ops as ns_ops
 from repro_torch.kernels.neighbor_sample import ref as ns_ref
 from repro_torch.kernels.seg_mm import ops as sm_ops
 from repro_torch.kernels.seg_mm import ref as sm_ref
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 CASES = ([(q, k, n) for q in (1, 2, 3, 8, 64) for k in (1, 50, 129) for n in (1, 333, 40_001)]
          + [(9, 300, 100_003), (2, 257, 4099)])
@@ -230,4 +239,88 @@ def test_gcn_forward_on_card_matches_cpu(cuda):
     got = gcn.forward({"layers": [{k: v.to(cuda) for k, v in lp.items()}
                                   for lp in params["layers"]]}, b.to(cuda), cfg)
     assert sm_ops.launches[sm_ops.SEG_MM] == 2 and sm_ops.LAYOUTS.builds == builds + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+B4_CASES = [(8, 4, 3, 100, 16), (16, 26, 1, 500, 64), (32, 2, 8, 50, 32),  # the reference test's
+            (1, 1, 1, 1, 1), (5, 3, 2, 40, 7), (7, 5, 4, 30, 300), (600, 26, 1, 1000, 64),
+            (3, 2, 0, 10, 8), (0, 26, 1, 10, 64)]
+
+
+def _bag_inputs(b, f, mh, v, d, dtype, device, *, wild=False):
+    rng = np.random.default_rng(b * 131 + f * 17 + mh * 5 + v + d)
+    tables = torch.from_numpy(rng.standard_normal((f, v, d)).astype(np.float32)).to(dtype)
+    lo, hi = (-v - 3, v + 3) if wild else (0, v)
+    idx = torch.from_numpy(rng.integers(lo, hi, (b, f, mh)).astype(np.int32))
+    return tables.to(device), idx.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wild", [False, True])
+@pytest.mark.parametrize("b,f,mh,v,d", B4_CASES)
+def test_embedding_bag_matches_plain_version_bitwise(cuda, b, f, mh, v, d, wild, dtype):
+    """Wrapped negatives, out-of-range → NaN, MH = 0, B = 0, odd D (scalar
+    loads), D past one pass of the group, both table types."""
+    tables, idx = _bag_inputs(b, f, mh, v, d, dtype, cuda, wild=wild)
+    eb_ops.reset_launches()
+    got = eb_ops.embedding_bag_fields(tables, idx)
+    assert eb_ops.launches[eb_ops.EMBEDDING_BAG] == (1 if got.numel() else 0)
+    assert chip_smoke.same_bits(got, eb_ref.embedding_bag_ref(tables, idx))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_embedding_bag_on_card_equals_the_cpu_plain_version(cuda):
+    tables, idx = _bag_inputs(64, 26, 3, 2000, 64, torch.float32, "cpu", wild=True)
+    want = eb_ref.embedding_bag_ref(tables, idx)
+    got = eb_ops.embedding_bag_fields(tables.to(cuda), idx.to(cuda))
+    assert chip_smoke.same_bits(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_embedding_bag_unaligned_rows_take_scalar_loads(cuda):
+    """A table view that starts 4 bytes into its storage is not 16-byte
+    aligned: the kernel must fall back to scalar loads and stay exact."""
+    tables, idx = _bag_inputs(40, 3, 2, 100, 64, torch.float32, cuda)
+    shifted = torch.empty(tables.numel() + 1, device=cuda)[1:].view(tables.shape)
+    shifted.copy_(tables)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    assert chip_smoke.same_bits(eb_ops.embedding_bag_fields(shifted, idx),
+                      eb_ref.embedding_bag_ref(tables, idx))
+
+
+@pytest.mark.cuda
+def test_embedding_bag_raises_on_the_card_instead_of_falling_back(cuda):
+    tables, idx = _bag_inputs(4, 2, 1, 10, 8, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        eb_ops.embedding_bag_fields(tables.half(), idx)
+    with pytest.raises(TypeError):
+        eb_ops.embedding_bag_fields(tables, idx.long())
+    with pytest.raises(ValueError, match="devices"):
+        eb_ops.embedding_bag_fields(tables, idx.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        eb_ops.embedding_bag_fields(tables.transpose(1, 2), idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mh", [1, 3])
+def test_dlrm_forward_on_card_matches_cpu(cuda, mh):
+    """RM2's widths with small tables: B4 once per forward on the card,
+    logits within 1e-4 of the port on the CPU (cuBLAS and CPU matmuls
+    round differently; TF32 off)."""
+    from repro_torch.configs import dlrm_rm2
+    from repro_torch.data import dlrm_batch
+    from repro_torch.models import dlrm
+
+    cfg = dataclasses.replace(dlrm_rm2.full_config(), vocab_size=5000, multi_hot=mh)
+    params = dlrm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    b = dlrm_batch(0, batch=512, vocab=cfg.vocab_size, multi_hot=mh, device="cpu")
+    want = dlrm.forward(params, b["dense"], b["sparse"], cfg)
+    on_card = {"tables": params["tables"].to(cuda),
+               **{k: [{n: t.to(cuda) for n, t in lp.items()} for lp in params[k]]
+                  for k in ("bot", "top")}}
+    eb_ops.reset_launches()
+    got = dlrm.forward(on_card, b["dense"].to(cuda), b["sparse"].to(cuda), cfg)
+    assert eb_ops.launches[eb_ops.EMBEDDING_BAG] == 1
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
