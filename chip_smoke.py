@@ -46,6 +46,19 @@ none of whose failures is caught:
    ``sample_embed`` of 512 pattern-seeded users under the edge filter's
    packed mask from an (n, 64) table, and each user's top-5 items over
    1,000,000 rows, held to the CPU port replayed on the card's priorities;
+3e. LM serving: ``gemma2-9b`` at its published widths and depth (42
+   layers, d 3,584, 16 query and 8 KV heads of 256, d_ff 14,336, vocab
+   256,000; 9.24 B random weights from ``--seed`` held in bf16, 18.5 GB on
+   the card) with its prefill attention on the flash_attention kernel
+   answers ``prefill_8k`` (one 8,192-token prompt: ``prefill_32k`` of
+   ``LM_SHAPES`` cut from 32 x 32,768), ``prefill_batch`` (8 x 1,024) and
+   ``generate`` (``launch/serve.py``'s decode loop, batch 4, 16 prompt and
+   16 greedy tokens), timed; checked (b) at full depth: every layer's
+   kernel output against the port's plain chunked attention on its inputs
+   (bf16), and the logits of a 4,608-token prefill against the plain paths'
+   in f32; (c) at full width and two layers in f32 against the port on the
+   CPU, (d) on that model decode's logits at every position against the
+   forward's;
 4. the byte layout (``byte_masks()``): build it and answer a fused pattern,
    which runs the byte kernel; its masks must equal the packed graph's;
 5. time each kernel at the main path's shapes beside its plain version,
@@ -83,6 +96,7 @@ SOURCES = {  # kernel family -> its CUDA source
     "neighbor_sample": "src/repro_torch/kernels/neighbor_sample/csrc/neighbor_sample.cu",
     "seg_mm": "src/repro_torch/kernels/seg_mm/csrc/seg_mm.cu",
     "embedding_bag": "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
+    "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
 }
 FANOUTS = [15, 10]  # GraphSAGE 15-10
 CHECK_ROWS = 4096  # rows of a sampled layer held to the Python-loop oracle
@@ -100,6 +114,26 @@ CONTEXT_USERS, CONTEXT_FANOUT, CONTEXT_DIM, CONTEXT_TOPK = 512, 8, 64, 5
 CONTEXT_ITEMS = 1_000_000  # item rows: the context table's last rows
 ITEM_BLOCK = 131_072  # item rows scored at once: no (users, items) matrix is made
 BAG_TOL = 1e-5  # card vs CPU context bags (a masked mean summed in another order)
+BF16_FLOP_PER_S = 989e12  # H100 SXM published dense bf16 tensor-core rate
+F32_FLOP_PER_S = 67e12  # H100 SXM published f32 rate outside the tensor cores
+B6_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the reference's flash tolerances (rtol = atol)
+# q and k entries of std QK_SCALE give scores (q·k)·D^-0.5 of std 9: they reach the
+# softcap's scale (|s| ~ 20-40 over thousands of keys) and the attention is peaked,
+# so outputs are single V rows rather than the mean of V.  There f32 cases are held
+# to the plain version in float64: its own f32 rounding uses up the 2e-5 tolerance
+# at such scores, the kernel's does not (phase 2 reports both; PERF.md, PR 15)
+QK_SCALE = 3.0
+# LM serving (phase 3e): LM_SHAPES["prefill_32k"] (32 x 32,768) cut to one prompt of
+# Gemma-2's published context, 8,192 tokens: 32 such prompts do not fit one card
+LM_REQUESTS = {"prefill_8k": (1, 8192), "prefill_batch": (8, 1024)}
+LM_GENERATE = dict(batch=4, prompt_len=16, gen=16)  # launch/serve.py's CLI defaults
+LM_CHECK_SEQ = 4608  # checks (b) in f32 and (c): past the 4,096 window
+LM_F32_TOL = 1e-4  # f32 logits (atol = rtol) of paths whose matmuls round differently
+# check (b) in f32 at full depth (atol = rtol): 42 layers grow f32 rounding differences
+# between two correct paths to ~8e-3 at logits of absmax ~11 (direct vs chunked
+# attention, measured on the H100); a model with its window off lands ~13 away
+# (PERF.md, PR 15)
+LM_DEPTH_TOL = 3e-2
 
 
 def check(cond: bool, what: str) -> None:
@@ -243,8 +277,10 @@ def device_profile(pg, reqs) -> dict:
 
 
 # ------------------------------------------------------------------ phases
-def kernel_checks(device) -> None:
-    """Every kernel against its plain version, bitwise, on ragged shapes."""
+def kernel_checks(device) -> dict:
+    """Every kernel against its plain version, bitwise, on ragged shapes
+    (B5 and B6 within their tolerances); returns what B6's f32 checks show
+    of f32 rounding (``flash_attention_checks``)."""
     import torch
 
     from repro_torch.kernels.bitmap_query import ops, ref
@@ -270,7 +306,9 @@ def kernel_checks(device) -> None:
     window_select_checks(device)
     embedding_bag_checks(device)
     seg_mm_checks(device)
+    rounding = flash_attention_checks(device)
     torch.cuda.synchronize()
+    return rounding
 
 
 def window_select_checks(device) -> None:
@@ -345,6 +383,84 @@ def embedding_bag_checks(device) -> None:
                 got = ops.embedding_bag_fields(tables, idx)
                 check(same_bits(got, ref.embedding_bag_ref(tables, idx)),
                       f"B4 B={b} F={f} MH={mh} V={v} D={d} {dtype} wild={wild}")
+
+
+def attention_within(got, want) -> bool:
+    """Within the reference's flash tolerance for ``got``'s dtype (rtol =
+    atol); ``want`` may be computed in a wider type."""
+    import torch
+
+    tol = B6_TOL[str(got.dtype).split(".")[-1]]
+    return torch.allclose(got.double(), want.double(), rtol=tol, atol=tol)
+
+
+def attention_close(got, want, what: str) -> float:
+    """B6 against its plain version within the reference's tolerance for
+    the dtype; returns the largest difference."""
+    import torch
+
+    err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()), f"{what}: shape, finite")
+    check(attention_within(got, want), f"{what}: within {B6_TOL} (max err {err})")
+    return err
+
+
+def tolerance_share(got, want, tol: float) -> float:
+    """The largest |got - want| / (tol + tol |want|): 1 is the limit."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / (tol + tol * want.abs())).max())
+
+
+def flash_attention_checks(device) -> dict:
+    """B6 against its plain version: ``prefill_8k``'s layer shapes (q (1,
+    8192, 16, 256), k and v (1, 8192, 8, 256), bf16, cap 50) with the local
+    window and without, on scores at the cap's scale (``QK_SCALE``); f32
+    cases; rows with no valid key (q_offset past the window: the mean of V);
+    ragged lengths, GQA and narrow heads.  Where the cap is set and the
+    scores reach it, the same call without the cap must fail the check:
+    the check can tell the softcap from none.  Returns, for each f32 case
+    held in float64, the shares of the tolerance that the kernel and the
+    f32 plain version use against it."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    layer = (1, 8192, 8192, 16, 8, 256)
+    big, small = QK_SCALE, 0.3
+    cases = [(layer, torch.bfloat16, big, dict(causal=True, window=4096, cap=50.0)),
+             (layer, torch.bfloat16, big, dict(causal=True, cap=50.0)),
+             ((2, 640, 700, 16, 8, 256), torch.float32, big, dict(causal=True, window=300, cap=50.0)),
+             ((1, 256, 256, 16, 8, 256), torch.bfloat16, 5.0, dict(causal=True, window=64, cap=30.0)),
+             ((1, 256, 256, 16, 8, 256), torch.float32, big, dict(causal=True, window=64, cap=30.0)),
+             ((1, 77, 131, 4, 2, 16), torch.float32, small, dict(causal=True)),
+             ((2, 65, 300, 18, 2, 128), torch.bfloat16, small,
+              dict(causal=True, window=40, q_offset=200)),
+             ((1, 33, 70, 2, 2, 40), torch.bfloat16, small, dict(causal=False, window=20, cap=30.0))]
+    masked = dict(causal=True, window=64, q_offset=400)  # q_offset + i - 63 > Skv - 1 = 255
+    rounding = {}
+    cases += [((1, 128, 256, 16, 8, 256), dt, small, masked) for dt in (torch.bfloat16, torch.float32)]
+    for (b, sq, skv, hq, hkv, d), dtype, scale, kw in cases:
+        q = (torch.randn((b, sq, hq, d), generator=gen, device=device) * scale).to(dtype)
+        k = (torch.randn((b, skv, hkv, d), generator=gen, device=device) * scale).to(dtype)
+        v = torch.randn((b, skv, hkv, d), generator=gen, device=device).to(dtype)
+        what = f"B6 {(b, sq, skv, hq, hkv, d)} {dtype} qk x{scale} {kw}"
+        got = ops.flash_attention(q, k, v, **kw)
+        wide = dtype == torch.float32 and scale > 1  # the plain version in float64 (QK_SCALE)
+        want = ref.flash_attention_ref(*(t.double() if wide else t for t in (q, k, v)), **kw)
+        attention_close(got, want, what)
+        if wide:
+            rounding[what] = {"kernel": tolerance_share(got, want, B6_TOL["float32"]),
+                              "plain_f32": tolerance_share(ref.flash_attention_ref(q, k, v, **kw),
+                                                           want, B6_TOL["float32"])}
+        if kw is masked:
+            mean = v.float().mean(dim=1, keepdim=True).repeat_interleave(hq // hkv, dim=2)
+            attention_close(got, mean.expand(got.shape).to(dtype), what + " = mean of V")
+        if kw.get("cap") is not None and scale > 1:
+            uncapped = ops.flash_attention(q, k, v, **{**kw, "cap": None})
+            check(not attention_within(uncapped, want), f"{what}: cap=None fails the check")
+        del q, k, v, got, want
+    return rounding
 
 
 def sums_close(got, want, scale) -> bool:
@@ -693,8 +809,7 @@ def gnn_phase(pg, seed: int, device: str, sync) -> dict:
     gen = torch.Generator(device=device).manual_seed(seed + 5)
     feats = torch.randn((n, D_FEAT), generator=gen, device=device)
     labels = torch.randint(0, N_CLASSES, (n,), generator=gen, device=device, dtype=torch.int32)
-    cfg = dataclasses.replace(gcn_cora.full_config(d_feat=D_FEAT, n_classes=N_CLASSES),
-                              spmm_impl="kernel")
+    cfg = gcn_cora.full_config(d_feat=D_FEAT, n_classes=N_CLASSES)  # spmm_di: B5 on the card
     model = gcn.GCN(cfg, gcn.init_params(gen, cfg, device=device))
     res = pg.match(GNN_SEED_POOL)
     pool_mask = (res.node_masks[0] if res.node_masks else res.vertex_mask).cpu().numpy()
@@ -812,9 +927,10 @@ def cpu_params(params, tables) -> dict:
                for k in ("bot", "top")}}
 
 
-def check_close(got, want, tol: float, what: str) -> float:
+def check_close(got, want, tol: float, what: str, against: str = "the CPU port's") -> float:
     """``got`` (from the card) finite and within ``tol`` (atol = rtol) of
-    ``want`` (the CPU port); returns the largest difference."""
+    ``want`` (on the host: by default the CPU port's); returns the largest
+    difference."""
     import torch
 
     got = got.cpu()
@@ -822,7 +938,7 @@ def check_close(got, want, tol: float, what: str) -> float:
     check(bool(torch.isfinite(got).all()), f"{what}: finite")
     err = float((got - want).abs().max()) if got.numel() else 0.0
     check(torch.allclose(got, want, rtol=tol, atol=tol),
-          f"{what}: within {tol} of the CPU port's (max err {err})")
+          f"{what}: within {tol} of {against} (max err {err})")
     return err
 
 
@@ -1063,6 +1179,346 @@ def context_phase(pg, seed: int, device: str, sync) -> dict:
     return out
 
 
+# ------------------------------------------------------------ LM serving
+@contextlib.contextmanager
+def plain_attention(path: str):
+    """Inside the block the transformer's prefill attention runs the
+    port's plain ``_chunked`` (or ``_direct``) path on the card instead of
+    B6: a check, not a path of the package."""
+    from repro_torch.models import transformer
+    from repro_torch.nn import attention as attn
+
+    saved = transformer.attention
+
+    def attention(q, k, v, *, causal, window, cap, impl, chunk):
+        del impl
+        if path == "chunked":
+            return attn._chunked(q, k, v, causal=causal, window=window, cap=cap, q_offset=0,
+                                 chunk=min(chunk, k.shape[1]))
+        return attn._direct(q, k, v, causal=causal, window=window, cap=cap, q_offset=0)
+
+    transformer.attention = attention
+    try:
+        yield
+    finally:
+        transformer.attention = saved
+
+
+@contextlib.contextmanager
+def checking_flash(errs: list):
+    """Every B6 call inside the block is held, on its own inputs, to the
+    port's plain chunked attention on the card at ``B6_TOL``; ``errs``
+    gets each call's largest difference."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.nn import attention as attn
+
+    saved = ops.flash_attention
+
+    def flash_attention(q, k, v, **kw):
+        o = saved(q, k, v, **kw)
+        want = attn._chunked(q, k, v, causal=kw["causal"], window=kw["window"], cap=kw["cap"],
+                             q_offset=kw["q_offset"])
+        errs.append(attention_close(o, want, f"B6 layer {len(errs)} against chunked"))
+        return o
+
+    ops.flash_attention = flash_attention
+    try:
+        yield
+    finally:
+        ops.flash_attention = saved
+
+
+@contextlib.contextmanager
+def counting_flash(limit: int = 0):
+    """Count the B6 calls inside the block by layer kind (a call with a
+    window is a local layer's) and record the inputs (q, k, v, keyword
+    arguments) of the first ``limit``."""
+    from repro_torch.kernels.flash_attention import ops
+
+    calls, by_layer = [], {"local": 0, "global": 0}
+    saved = ops.flash_attention
+
+    def flash_attention(q, k, v, **kw):
+        by_layer["local" if kw["window"] is not None else "global"] += 1
+        if len(calls) < limit:
+            calls.append((q, k, v, kw))
+        return saved(q, k, v, **kw)
+
+    ops.flash_attention = flash_attention
+    try:
+        yield calls, by_layer
+    finally:
+        ops.flash_attention = saved
+
+
+def moved(tree, device):
+    """A params tree (dicts and lists of tensors) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: moved(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [moved(v, device) for v in tree]
+    return tree.to(device)
+
+
+def lm_phase(seed: int, device: str, sync) -> dict:
+    """Phase 3e (module docstring).  Returns per-kind results and the first
+    two B6 calls of ``prefill_8k`` (a local and a global layer) for
+    phase 5."""
+    import torch
+
+    from repro_torch.configs import gemma2_9b
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    full = device == "cuda"
+    # on the CPU (a rehearsal) the smoke config in bf16 at short lengths
+    cfg = (gemma2_9b.full_config() if full else
+           dataclasses.replace(gemma2_9b.smoke_config(), dtype=torch.bfloat16, attn_impl="auto"))
+    shapes = LM_REQUESTS if full else {"prefill_8k": (1, 64), "prefill_batch": (2, 32)}
+    out = {"config": cfg.name, "n_params": cfg.n_params, "n_layers": cfg.n_layers,
+           "reduced": {"batch": "32 -> 1", "seq": "32,768 -> 8,192"}}
+    if full:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(seed + 9)
+    t0 = time.perf_counter()
+    params = T.init_params(gen, cfg, device=device)
+    sync()
+    out["init_s"] = time.perf_counter() - t0
+    out["weights_gb"] = sum(t.numel() * t.element_size() for _, t in T._flatten(params, "")) / 1e9
+
+    def request(tokens):  # a prompt batch from the host, the last logits back to it
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            lg = T.prefill(params, tokens.to(device), cfg).cpu()
+        sync()
+        return lg, (time.perf_counter() - t0) * 1e3
+
+    def launched() -> int:  # B6 launches since the last call
+        n = ops.launches[ops.FLASH_ATTENTION]
+        ops.reset_launches()
+        return n
+
+    batches, b6_calls = {}, []
+    ops.reset_launches()
+    for step, (kind, (b, s)) in enumerate(shapes.items()):
+        toks = lm_batch(step, batch=b, seq=s, vocab=cfg.vocab, seed=seed, device="cpu")["tokens"]
+        batches[kind] = toks
+        # a warm run (for prefill_8k it records a local and a global layer's B6 inputs),
+        # then 3 timed ones
+        with counting_flash(2 if kind == "prefill_8k" else 0) as (calls, by_layer):
+            runs = [request(toks) for _ in range(4)]
+        n = launched()
+        check(sum(by_layer.values()) == n, f"{kind}: B6 launches {n} = calls by layer {by_layer}")
+        if kind == "prefill_8k":
+            b6_calls = calls
+        if full:
+            check(n == len(runs) * cfg.n_layers,
+                  f"{kind}: B6 launched {n} times for {len(runs)} requests of "
+                  f"{cfg.n_layers} layers")
+        lg = runs[-1][0]
+        check(lg.shape == (b, 1, cfg.vocab) and bool(torch.isfinite(lg.float()).all()),
+              f"{kind}: logits shape and finite")
+        med = statistics.median(ms for _, ms in runs[1:])
+        out[kind] = {"median_ms": med, "runs_ms": [ms for _, ms in runs[1:]], "batch": b,
+                     "seq": s, "tokens_per_s": b * s / med * 1e3, "b6_launches": n,
+                     "b6_launches_by_layer": dict(by_layer), "b6_per_request": n // len(runs)}
+    if full:  # on the CPU attention takes the reference's plain branch: no B6 call
+        check(len(b6_calls) == 2 and b6_calls[0][3]["window"] == cfg.window
+              and b6_calls[1][3]["window"] is None, "recorded a local and a global layer's B6 call")
+        out["prefill_8k"]["profile"] = sample_profile(lambda: request(batches["prefill_8k"]))
+        ops.reset_launches()
+
+    # (b) full depth, bf16: every layer's B6 output against the plain chunked path on
+    # that layer's inputs; the logits against a prefill on the plain path, reported
+    # (bf16 rounding differences grow with depth to the logits' scale: PERF.md, PR 15)
+    t8k = batches["prefill_8k"].to(device)
+    layer_errs = []
+    with torch.inference_mode():
+        with checking_flash(layer_errs):
+            lg = T.prefill(params, t8k, cfg).float()
+        b6_in_check = launched()
+        with plain_attention("chunked"):
+            lg_chunked = T.prefill(params, t8k, cfg).float()
+        check(launched() == 0, "the plain attention path launches no B6")
+    if full:
+        check(len(layer_errs) == cfg.n_layers, f"{len(layer_errs)} of {cfg.n_layers} layers held")
+    check(bool(torch.isfinite(lg_chunked).all()), "plain logits finite")
+    out["check_b"] = {"layer_max_abs_err": max(layer_errs, default=0.0),
+                      "layer_errs": layer_errs, "b6_launches": b6_in_check,
+                      "bf16_logits_max_abs_err": float((lg - lg_chunked).abs().max()),
+                      "bf16_logit_absmax": float(lg.abs().max()),
+                      "greedy_b6": lg.argmax(-1).flatten().tolist(),
+                      "greedy_chunked": lg_chunked.argmax(-1).flatten().tolist()}
+    del lg, lg_chunked
+
+    # generate: launch/serve.py at full width and depth, decode in plain torch
+    res = serve.serve_demo(gemma2_9b.ARCH_ID, seed=seed, device=device, cfg=cfg, params=params,
+                           **LM_GENERATE)
+    n_dec = launched()
+    check(n_dec == 0, f"decode attends in plain torch (B6 launched {n_dec} times)")
+    check(bool(torch.isfinite(res["logits"].float()).all()), "decode logits finite")
+    steps = res["step_ms"]
+    out["generate"] = {"median_step_ms": statistics.median(steps[1:]), "steps": len(steps),
+                       "first_step_ms": steps[0], **{k: v for k, v in LM_GENERATE.items()},
+                       "tokens_per_s": LM_GENERATE["batch"] / statistics.median(steps[1:]) * 1e3,
+                       "b6_launches": n_dec}
+    out["peak_mem_gib_served"] = (torch.cuda.max_memory_allocated() / 2**30) if full else None
+    del params, res
+
+    # (c) full width, two layers (local, global), f32: the card against the CPU port;
+    # (d) on the same model, decode's logits at every position against the forward's
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 is off for float32 matmuls")
+    seq2 = LM_CHECK_SEQ if full else 40
+    p2 = T.init_params(torch.Generator(device=device).manual_seed(seed + 10), cfg2, device=device)
+    toks = lm_batch(99, batch=1, seq=seq2, vocab=cfg2.vocab, seed=seed, device="cpu")["tokens"]
+    ops.reset_launches()
+    with torch.inference_mode():
+        got = T.prefill(p2, toks.to(device), cfg2).cpu()
+        n = launched()
+        res = serve.serve_demo(gemma2_9b.ARCH_ID, seed=seed, device=device, cfg=cfg2, params=p2,
+                               **LM_GENERATE)
+        check(launched() == 0, "f32 decode launches no B6")
+        seq = torch.cat([res["prompts"], res["tokens"]], dim=1)
+        h, _ = T.forward(p2, seq[:, :-1], cfg2)
+        fwd = T._logits(p2, h, cfg2).cpu()
+        n_fwd = launched()
+        if full:
+            check(n == 2 and n_fwd == 2, f"checks (c), (d): B6 launched {n}, {n_fwd} times "
+                                         "for 2 layers")
+        p2 = moved(p2, "cpu")
+        t0 = time.perf_counter()
+        want = T.prefill(p2, toks, cfg2)
+    out["check_c"] = {"max_abs_err": check_close(got, want, LM_F32_TOL, "f32 two-layer logits"),
+                      "share_of_tolerance": tolerance_share(got, want, LM_F32_TOL),
+                      "seq": seq2, "cpu_s": time.perf_counter() - t0, "b6_launches": n}
+    dec = res["logits"]
+    err = check_close(dec, fwd, LM_F32_TOL, "f32 two-layer decode logits", "the forward's")
+    p0 = LM_GENERATE["prompt_len"] - 1
+    top2 = torch.topk(fwd[:, p0:], 2, dim=-1).values
+    # each side is within the tolerance of the other: a pick may differ only where
+    # the forward's two best logits lie within twice the tolerance
+    near = (top2[..., 0] - top2[..., 1]) <= 2 * LM_F32_TOL * (1 + top2[..., 0].abs())
+    differ = fwd[:, p0:].argmax(-1) != res["tokens"].cpu().to(torch.int64)
+    check(not bool((differ & ~near).any()),
+          "generate: greedy tokens equal the forward's outside near-ties")
+    out["check_d"] = {"max_abs_err": err,
+                      "share_of_tolerance": tolerance_share(dec.cpu(), fwd, LM_F32_TOL),
+                      "positions": int(dec.shape[1]), "greedy_tokens": int(differ.numel()),
+                      "near_ties": int(near.sum()), "tokens_differing": int(differ.sum()),
+                      "b6_launches_forward": n_fwd}
+    del p2, res, dec, fwd
+
+    # (b) full depth in f32 at LM_CHECK_SEQ tokens: B6's logits against the plain chunked
+    # path's, the plain direct path's against them too, and the window turned off must fail
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = T.init_params(torch.Generator(device=device).manual_seed(seed + 11), cfg32,
+                        device=device)
+    t32 = toks.to(device)
+    with torch.inference_mode():
+        lg = T.prefill(p32, t32, cfg32).float()
+        n = launched()
+        with plain_attention("chunked"):
+            lg_chunked = T.prefill(p32, t32, cfg32).float()
+        with plain_attention("direct"):
+            lg_direct = T.prefill(p32, t32, cfg32).float()
+        check(launched() == 0, "the plain attention paths launch no B6")
+        lg_nowin = T.prefill(p32, t32, dataclasses.replace(cfg32, window=None)).float()
+        ops.reset_launches()
+    if full:
+        check(n == cfg.n_layers, f"check (b) f32: B6 launched {n} times")
+
+    def depth_within(a, b) -> bool:
+        return bool(torch.allclose(a, b, rtol=LM_DEPTH_TOL, atol=LM_DEPTH_TOL))
+
+    check(bool(torch.isfinite(lg).all()), "f32 full-depth logits finite")
+    check(depth_within(lg, lg_chunked), "f32 full depth: B6 logits within "
+          f"{LM_DEPTH_TOL} of the chunked path's")
+    check(depth_within(lg_direct, lg_chunked), "f32 full depth: the direct path's logits within "
+          f"{LM_DEPTH_TOL} of the chunked path's")
+    check(not depth_within(lg_nowin, lg_chunked), "f32 full depth: the check fails the logits "
+          "of the model with its window off")
+    out["check_b"]["f32"] = {"seq": seq2, "b6_launches": n, "logit_absmax": float(lg.abs().max()),
+                             "b6_vs_chunked": float((lg - lg_chunked).abs().max()),
+                             "direct_vs_chunked": float((lg_direct - lg_chunked).abs().max()),
+                             "window_off_vs_chunked": float((lg_nowin - lg_chunked).abs().max()),
+                             "share_of_tolerance": {
+                                 name: tolerance_share(a, lg_chunked, LM_DEPTH_TOL)
+                                 for name, a in (("b6", lg), ("direct", lg_direct),
+                                                 ("window_off", lg_nowin))},
+                             "greedy_b6": lg.argmax(-1).flatten().tolist(),
+                             "greedy_chunked": lg_chunked.argmax(-1).flatten().tolist()}
+    del p32, lg, lg_chunked, lg_direct, lg_nowin
+    if full:
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["b6_calls"] = b6_calls
+    return out
+
+
+def attention_pairs(sq: int, skv: int, *, causal: bool = True, window=None, cap=None,
+                    q_offset: int = 0) -> int:
+    """The (q, k) pairs the masks keep, per batch row and head."""
+    del cap
+    i = np.arange(sq, dtype=np.int64) + q_offset
+    hi = np.minimum(skv - 1, i) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, i - window + 1) if window is not None else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_attention_entry(name: str, call, launches: int) -> dict:
+    """Phase 5's B6 line for one recorded prefill call (q, k, v, keywords).
+    The bound counts what these masks keep: 4·D FLOP per kept (q, k) pair
+    and query head (two products) at the dense bf16 rate, against q, k, v
+    read once and o written once.  The yardstick is
+    ``scaled_dot_product_attention`` with GQA and a boolean mask of the
+    same causal window, without the softcap: not the same function, as no
+    PyTorch call softcaps attention scores."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    q, k, v, kw = call
+    b, sq, hq, d = q.shape
+    skv = k.shape[1]
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    err = attention_close(got, want, f"timed {name}")
+    del want
+    pairs = attention_pairs(sq, skv, **kw)
+    flops = 4 * d * hq * b * pairs
+    moved_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    i = torch.arange(sq, device=q.device)[:, None] + kw.get("q_offset", 0)
+    j = torch.arange(skv, device=q.device)[None, :]
+    mask = i >= j
+    if kw.get("window") is not None:
+        mask &= (i - j) < kw["window"]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                                enable_gqa=True)
+
+    entry = {"name": name, "route": "cuda", "source": SOURCES["flash_attention"],
+             "replaces": "src/repro/kernels/flash_attention/kernel.py:73",
+             "launches": launches, "max_abs_err": err,
+             "ms": time_ms(lambda: ops.flash_attention(q, k, v, **kw), 10),
+             "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 2),
+             "bound_ms": max(flops / rate, moved_bytes / HBM_BYTES_PER_S) * 1e3,
+             "bound_by": "operations" if flops / rate >= moved_bytes / HBM_BYTES_PER_S
+             else "bytes",
+             "library_ms": time_ms(library, 10),
+             "library_note": "not the same function: no softcap",
+             "shape": {"B": b, "Sq": sq, "Skv": skv, "Hq": hq, "Hkv": k.shape[2], "D": d,
+                       "dtype": str(q.dtype), **{kk: vv for kk, vv in kw.items()},
+                       "pairs": pairs, "flop": flops}}
+    entry["tflop_per_s"] = flops / entry["ms"] / 1e9
+    return entry
+
+
 def embedding_bag_entry(name: str, tables, idxs, launches: int) -> dict:
     """Phase 5's B4 line at one request kind's shape, timed over that
     kind's batches in turn (``idxs``: 16 serve_p99 batches, about 54 MB of
@@ -1216,6 +1672,7 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
     from repro_torch.graph.generators import random_uniform_graph
     from repro_torch.kernels.bitmap_query import kernel, ops, ref
     from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.neighbor_sample import kernel as ns_kernel
     from repro_torch.kernels.seg_mm import kernel as sm_kernel
 
@@ -1225,12 +1682,12 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
     if device == "cuda":
         with ThreadPoolExecutor(len(SOURCES)) as pool:
             list(pool.map(lambda build: build(), (kernel.build, ns_kernel.build, sm_kernel.build,
-                                                  eb_kernel.build)))
+                                                  eb_kernel.build, fa_kernel.build)))
     out["kernel_build_s"] = time.perf_counter() - t0
 
     # --- phase 2: kernels against their plain versions
     if device == "cuda":
-        kernel_checks(device)
+        out["b6_f32_rounding"] = kernel_checks(device)
     print("phase 2 ok: kernels equal their plain versions", flush=True)
 
     # --- phase 3: the main path (packed layout)
@@ -1304,6 +1761,20 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
                          for k in ("serve_p99", "serve_bulk", "retrieval_cand")},
                       "context": out["context"]["check"]}), flush=True)
 
+    # --- phase 3e: LM serving (Gemma-2-9B), after 3d's request batches are gone
+    out["lm"] = lm_phase(seed, device, sync)
+    b6_calls = out["lm"].pop("b6_calls")
+    print("phase 3e timings", json.dumps({
+        **{k: (out["lm"][k]["median_ms"], out["lm"][k]["tokens_per_s"],
+               out["lm"][k]["b6_per_request"]) for k in LM_REQUESTS},
+        "generate_step_ms": out["lm"]["generate"]["median_step_ms"]}), flush=True)
+    print("phase 3e ok: B6 within", B6_TOL["bfloat16"], "of the plain path at every layer;",
+          "f32 full-depth logits of B6 and the direct path within", LM_DEPTH_TOL,
+          "of the chunked path's; f32 two-layer logits within", LM_F32_TOL,
+          "of the CPU port's (prefill) and of the forward's (decode)",
+          json.dumps({"b": out["lm"]["check_b"], "c": out["lm"]["check_c"],
+                      "d": out["lm"]["check_d"]}), flush=True)
+
     # --- phase 4: the byte layout
     ops.reset_launches()
     with bitplane.byte_masks():
@@ -1376,11 +1847,14 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
               for kind, idxs in (("serve_p99", b4_calls["serve_p99"]),
                                  ("serve_bulk", b4_calls["serve_bulk"]))]
         check(all(e["max_abs_err"] == 0 for e in b4), "timed B4 exact")
-        out["kernels"] = [b1, b2, b3, *b4, *b5]
+        b6 = [flash_attention_entry(f"flash_attention (B6) prefill_8k {kind} layer", call,
+                                    out["lm"]["prefill_8k"]["b6_launches_by_layer"][kind])
+              for kind, call in zip(("local", "global"), b6_calls)]
+        out["kernels"] = [b1, b2, b3, *b4, *b5, *b6]
         out["peak_mem_gib"] = max(torch.cuda.max_memory_allocated() / 2**30,
                                   out["gnn"]["peak_mem_gib"], out["gnn"]["peak_mem_gib_before"],
-                                  out["recsys"]["peak_mem_gib"])
-    del b4_calls
+                                  out["recsys"]["peak_mem_gib"], out["lm"]["peak_mem_gib"])
+    del b4_calls, b6_calls
     return out
 
 

@@ -1,9 +1,17 @@
-"""Shared config tables.  Ported so far: the recsys request shapes
-(``RECSYS_SHAPES``) and the 512-row padding rule (``pad512``); the
-reference's spec builders produce JAX shape structs and stay behind."""
+"""Shared config tables.  Ported so far: the LM and recsys request shapes
+(``LM_SHAPES``, ``RECSYS_SHAPES``) and the 512-row padding rule
+(``pad512``); the reference's spec builders produce JAX shape structs and
+stay behind."""
 from __future__ import annotations
 
-__all__ = ["RECSYS_SHAPES", "PAD_QUANTUM", "pad512"]
+__all__ = ["LM_SHAPES", "RECSYS_SHAPES", "PAD_QUANTUM", "pad512"]
+
+LM_SHAPES = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}
 
 RECSYS_SHAPES = {
     "train_batch": dict(batch=65536, kind="train"),

@@ -9,8 +9,9 @@ extremes for integer data); ``gather_scatter(agg="max")`` and
 ``segment_softmax`` then map non-finite values to 0, as the reference does.
 
 ``gather_scatter`` is the generic MPNN primitive; ``spmm_di`` the GCN-style
-Ã·X product, which runs the CUDA kernel B5 (``kernels/seg_mm``) with
-``impl='kernel'`` and plain torch with ``impl='segment'``.
+Ã·X product, which runs the CUDA kernel B5 (``kernels/seg_mm``) on CUDA
+tensors whatever ``impl`` says; on CPU tensors ``impl='segment'`` is the
+plain scatter and ``impl='kernel'`` B5's plain version.
 """
 from __future__ import annotations
 
@@ -155,9 +156,13 @@ def spmm_di(
     edge_weight: Optional[torch.Tensor] = None,
     impl: str = "segment",
 ) -> torch.Tensor:
-    """Ã @ X over DI edges. impl='segment' (plain torch) or 'kernel' (B5 on
-    the card; its plain version on the CPU)."""
-    if impl == "kernel":
+    """Ã @ X over DI edges.  On CUDA tensors both ``impl`` values run B5
+    (``kernels/seg_mm``); on CPU tensors ``'segment'`` is the plain scatter
+    (``gather_scatter``) and ``'kernel'`` B5's plain version.  ``impl`` is
+    kept, and checked, for parity with the reference's config."""
+    if impl not in ("segment", "kernel"):
+        raise ValueError(f"impl must be 'segment' or 'kernel', got {impl!r}")
+    if impl == "kernel" or x.device.type == "cuda":
         from repro_torch.kernels.seg_mm import ops as _ops
 
         return _ops.seg_mm(x, src_idx, dst_idx, num_nodes, edge_weight=edge_weight)

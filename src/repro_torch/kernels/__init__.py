@@ -11,6 +11,8 @@ at first use through the shared ``_build.py``, and the ctypes launchers),
                     sampling (B3)
   embedding_bag   — DLRM's mean-pooled multi-hot gather (B4)
   seg_mm          — DI neighbourhood aggregation, a CSR segment sum (B5)
+  flash_attention — blockwise online-softmax attention with GQA, causal and
+                    sliding-window masks and a logit softcap (B6)
 """
 from repro_torch.kernels.embedding_bag import embedding_bag_fields
 

@@ -1,8 +1,10 @@
 """GCN (Kipf & Welling, arXiv:1609.02907) over DI edge arrays.
 
 The ``gcn-cora`` config: 2 layers, d_hidden=16, sym normalization.
-Message passing is the paper's DI aggregation — ``spmm_di`` (a plain torch
-segment sum, or the CUDA kernel B5 ``seg_mm`` with ``spmm_impl='kernel'``).
+Message passing is the paper's DI aggregation — ``spmm_di``: the CUDA
+kernel B5 ``seg_mm`` on the card for either ``spmm_impl``; on the CPU a
+plain torch segment sum (``'segment'``) or B5's plain version
+(``'kernel'``).
 
 ``forward`` computes what the reference's ``forward`` computes, including
 two details kept on purpose: the in-degree of the self-loop term counts
@@ -40,7 +42,7 @@ class GCNConfig:
     norm: str = "sym"          # 'sym' | 'rw'
     aggregator: str = "mean"   # kept for config fidelity; norm implies weighting
     dropout: float = 0.0
-    spmm_impl: str = "segment"  # 'segment' (plain torch) | 'kernel' (B5)
+    spmm_impl: str = "segment"  # 'segment' | 'kernel': both run B5 on the card
     dtype: torch.dtype = torch.float32
 
 
@@ -76,8 +78,8 @@ def params_from_reference(params: Dict, cfg: GCNConfig, device=None) -> Dict:
 
 def forward(params: Dict, batch: GraphBatch, cfg: GCNConfig) -> torch.Tensor:
     """Logits (N, n_classes).  Both layers pass the same ``edge_dst`` tensor
-    to ``spmm_di``, so with ``spmm_impl='kernel'`` on the card B5's layout
-    is built once per batch and found in its cache by the second layer."""
+    to ``spmm_di``, so on the card B5's layout is built once per batch and
+    found in its cache by the second layer."""
     x = batch.x.to(cfg.dtype)
     w = degree_norm(batch.edge_src, batch.edge_dst, batch.n_nodes, mode=cfg.norm)
     w = w * batch.edge_mask.to(w.dtype)

@@ -1,18 +1,32 @@
 """Shared neural-net layers — functional (init/apply), params as plain dicts.
 
 Every layer is ``init_*(generator, ...) -> params`` plus a pure apply
-function, so params compose into nested dicts of tensors.  Ported so far:
-``init_linear`` / ``linear``, which the GNN models need; the norms, MLP,
-RoPE and softcap wait for the LM stack.
+function, so params compose into nested dicts of tensors.  Computation runs
+in the input's dtype (bf16 on the card for the LM stack) with f32
+normalization, as the reference does: weights are cast to ``x.dtype`` at
+each use and norm scales are read in f32.  ``gelu`` is the tanh form, which
+is the reference's (its gelu defaults to the tanh approximation).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional
 
 import torch
 
-__all__ = ["init_linear", "linear"]
+__all__ = [
+    "init_linear",
+    "linear",
+    "init_rmsnorm",
+    "rmsnorm",
+    "init_layernorm",
+    "layernorm",
+    "init_mlp",
+    "mlp",
+    "rope",
+    "softcap",
+]
 
 
 def init_linear(generator: torch.Generator, d_in: int, d_out: int, *, bias: bool = False,
@@ -34,3 +48,97 @@ def linear(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+def init_rmsnorm(d: int, dtype: torch.dtype = torch.float32,
+                 device=None) -> Dict[str, torch.Tensor]:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: Dict[str, torch.Tensor], x: torch.Tensor, *, eps: float = 1e-6,
+            plus_one: bool = False) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    s = p["scale"].to(torch.float32)
+    s = 1.0 + s if plus_one else s  # gemma convention stores scale-1
+    return (y * s).to(x.dtype)
+
+
+def init_layernorm(d: int, dtype: torch.dtype = torch.float32,
+                   device=None) -> Dict[str, torch.Tensor]:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: Dict[str, torch.Tensor], x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)).to(x.dtype)
+
+
+def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name == "gelu":
+        return torch.nn.functional.gelu(x, approximate="tanh")  # the reference's default
+    if name == "silu":
+        return torch.nn.functional.silu(x)
+    if name == "relu":
+        return torch.relu(x)
+    raise ValueError(name)
+
+
+def init_mlp(generator: torch.Generator, d_model: int, d_ff: int, *, gated: bool,
+             act: str = "silu", dtype: torch.dtype = torch.float32) -> Dict:
+    """{"up", "down"[, "gate"]} linears; ``act`` is applied by ``mlp``."""
+    del act  # a static choice of ``mlp``, not a parameter
+    p = {"up": init_linear(generator, d_model, d_ff, dtype=dtype),
+         "down": init_linear(generator, d_ff, d_model, dtype=dtype)}
+    if gated:
+        p["gate"] = init_linear(generator, d_model, d_ff, dtype=dtype)
+    return p
+
+
+def mlp(p: Dict, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
+    h = linear(p["up"], x)
+    if "gate" in p:
+        h = _act(act, linear(p["gate"], x)) * h
+    else:
+        h = _act(act, h)
+    return linear(p["down"], h)
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freq(half: int, theta: float, device: torch.device) -> torch.Tensor:
+    """RoPE's (half,) f32 frequencies, computed on the host and moved to
+    ``device``: the card's ``exp`` may round an entry one ulp away from
+    the CPU's, and at position p an angle moves by p ulps of the entry
+    (at p = 4,607 a 1-ulp nudge of 8 of 128 entries moves the logits by
+    ~1e-3); the same table on every device keeps the angles bitwise equal."""
+    freq = torch.exp(-math.log(theta) * torch.arange(half, dtype=torch.float32) / half)
+    return freq.to(device)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10000.0) -> torch.Tensor:
+    """Rotary position embedding.  x: (..., seq, n_heads, d_head); positions
+    broadcastable to (..., seq).  Rotates the two halves (GPT-NeoX layout);
+    angles in f32, the result cast back to ``x.dtype``."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = _rope_freq(half, float(theta), x.device)
+    ang = positions[..., None].to(torch.float32) * freq  # (..., seq, half)
+    cos = torch.cos(ang)[..., None, :]  # broadcast over heads
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """Gemma-2 logit soft-capping: cap·tanh(x/cap) in f32, cast back.
+    None ⇒ identity."""
+    if cap is None:
+        return x
+    return (cap * torch.tanh(x.to(torch.float32) / cap)).to(x.dtype)

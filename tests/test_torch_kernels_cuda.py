@@ -1,7 +1,11 @@
 """The hand-written CUDA kernels (bitmap_query B1/B2, neighbor_sample B3,
-embedding_bag B4, seg_mm B5) against their plain PyTorch versions on the
-card, with their launch counts: bitwise, or for B5's float sums within a
-bound on reordered summation (and bitwise run to run).  Needs an NVIDIA
+embedding_bag B4, seg_mm B5, flash_attention B6) against their plain
+PyTorch versions on the card, with their launch counts: bitwise, or for
+B5's float sums within a bound on reordered summation (and bitwise run to
+run), or for B6 within the reference's attention tolerances (2e-5 in f32,
+2e-2 in bf16; f32 scores at the softcap's scale are held to the plain
+version in float64); and the routing that sends the card's GCN (B5), attention
+(B6) and transformer through them.  Needs an NVIDIA
 card (marker ``cuda``; skips without one).  Imports neither JAX nor the
 reference package, so it runs where only the port is installed:
 
@@ -20,6 +24,8 @@ from repro_torch.core import bitplane
 from repro_torch.kernels.bitmap_query import ops, ref
 from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.kernels.embedding_bag import ref as eb_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.neighbor_sample import ops as ns_ops
 from repro_torch.kernels.neighbor_sample import ref as ns_ref
 from repro_torch.kernels.seg_mm import ops as sm_ops
@@ -324,3 +330,188 @@ def test_dlrm_forward_on_card_matches_cpu(cuda, mh):
     got = dlrm.forward(on_card, b["dense"].to(cuda), b["sparse"].to(cuda), cfg)
     assert eb_ops.launches[eb_ops.EMBEDDING_BAG] == 1
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_gcn_default_config_runs_b5_on_card(cuda):
+    """``GCNConfig()`` (``spmm_impl='segment'``) on CUDA tensors: both
+    layers run B5, and ``spmm_di`` routes either impl to it."""
+    from repro_torch.data import synthetic_graph_batch
+    from repro_torch.graph.segment_ops import spmm_di
+    from repro_torch.models import gcn
+
+    cfg = gcn.GCNConfig()
+    assert cfg.spmm_impl == "segment"
+    b = synthetic_graph_batch(n_nodes=500, n_edges=3000, d_feat=cfg.d_in, device="cpu")
+    params = gcn.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    want = gcn.forward(params, b, cfg)
+    sm_ops.reset_launches()
+    got = gcn.forward({"layers": [{k: v.to(cuda) for k, v in lp.items()}
+                                  for lp in params["layers"]]}, b.to(cuda), cfg)
+    assert sm_ops.launches[sm_ops.SEG_MM] == 2
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    x, src, dst, w = _seg_mm_inputs(8, 50, 100, cuda)
+    for impl in ("segment", "kernel"):
+        sm_ops.reset_launches()
+        spmm_di(x, src, dst, 50, edge_weight=w, impl=impl)
+        assert sm_ops.launches[sm_ops.SEG_MM] == 1
+    with pytest.raises(ValueError, match="impl"):
+        spmm_di(x, src, dst, 50, impl="dense")
+
+
+# (b, sq, skv, hq, hkv, d, kwargs)
+B6_CASES = [
+    (2, 128, 128, 4, 2, 32, dict(causal=True)),
+    (1, 256, 256, 8, 8, 64, dict(causal=True, window=64)),
+    (1, 128, 128, 4, 1, 32, dict(causal=False, cap=50.0)),
+    (2, 128, 128, 8, 4, 64, dict(causal=True, window=32, cap=30.0)),
+    (1, 77, 131, 4, 2, 16, dict(causal=True)),
+    (2, 65, 300, 18, 2, 128, dict(causal=True, window=40, cap=50.0, q_offset=200)),
+    (1, 200, 200, 4, 2, 256, dict(causal=True, window=33, cap=50.0)),
+    (1, 300, 300, 16, 8, 256, dict(causal=True, cap=50.0)),
+    (1, 33, 70, 2, 2, 40, dict(causal=False, window=20)),
+    (1, 1, 517, 4, 2, 128, dict(causal=True, q_offset=516)),  # one decode-like row
+    (3, 9, 5, 3, 1, 20, dict(causal=True, window=3, q_offset=2)),  # D % 8 != 0: scalar loads
+    (1, 64, 64, 4, 2, 256, dict(causal=True, window=4, q_offset=100)),  # no valid key anywhere
+    (1, 100, 64, 2, 1, 16, dict(causal=True, window=8, q_offset=30)),  # some rows without one
+]
+
+
+def _attn_inputs(b, sq, skv, hq, hkv, d, dtype, device, scale=0.3):
+    """q and k entries of std ``scale`` (scores of std ``scale``²), V of std 1."""
+    rng = np.random.default_rng(b * 31 + sq * 7 + skv + d)
+    q = torch.from_numpy((rng.standard_normal((b, sq, hq, d)) * scale).astype(np.float32))
+    k = torch.from_numpy((rng.standard_normal((b, skv, hkv, d)) * scale).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, skv, hkv, d)).astype(np.float32))
+    return tuple(t.to(dtype).to(device) for t in (q, k, v))
+
+
+B6_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,kw", B6_CASES)
+def test_flash_attention_matches_plain_version(cuda, b, sq, skv, hq, hkv, d, kw, dtype):
+    q, k, v = _attn_inputs(b, sq, skv, hq, hkv, d, dtype, cuda)
+    fa_ops.reset_launches()
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    assert fa_ops.launches[fa_ops.FLASH_ATTENTION] == 1
+    assert got.shape == q.shape and got.dtype == dtype
+    want = fa_ref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **B6_TOL[dtype])
+    torch.cuda.synchronize()
+
+
+# (b, sq, skv, hq, hkv, d, kwargs) with a softcap, at q and k scales whose scores
+# (of std scale²) reach it; f32 is held to the plain version in float64 there
+# (chip_smoke.QK_SCALE)
+B6_CAP_CASES = [
+    (1, 256, 256, 16, 8, 256, dict(causal=True, window=64, cap=30.0)),
+    (2, 300, 300, 8, 4, 128, dict(causal=True, window=100, cap=50.0)),
+    (1, 128, 128, 4, 1, 32, dict(causal=False, cap=50.0)),
+]
+B6_CAP_SCALES = [(torch.float32, 3.0), (torch.bfloat16, 3.0), (torch.bfloat16, 5.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,scale", B6_CAP_SCALES)
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,kw", B6_CAP_CASES)
+def test_flash_attention_softcap_at_its_scale(cuda, b, sq, skv, hq, hkv, d, kw, dtype, scale):
+    """Scores at the cap's scale: the kernel matches the capped plain
+    version, and the kernel without the cap fails the same tolerance, so
+    the check tells the softcap from none."""
+    q, k, v = _attn_inputs(b, sq, skv, hq, hkv, d, dtype, cuda, scale)
+    wide = (t.double() if dtype == torch.float32 else t for t in (q, k, v))
+    want = fa_ref.flash_attention_ref(*wide, **kw).double()
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    torch.testing.assert_close(got.double(), want, **B6_TOL[dtype])
+    uncapped = fa_ops.flash_attention(q, k, v, **{**kw, "cap": None})
+    assert not torch.allclose(uncapped.double(), want, **B6_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_no_valid_key_is_the_mean_of_v(cuda, dtype):
+    q, k, v = _attn_inputs(1, 70, 64, 4, 2, 128, dtype, cuda)
+    got = fa_ops.flash_attention(q, k, v, causal=True, window=4, q_offset=100)
+    mean = v.float().mean(dim=1, keepdim=True).repeat_interleave(2, dim=2)
+    torch.testing.assert_close(got.float(), mean.expand_as(got), **B6_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_attention_reads_strided_inputs(cuda):
+    """q, k and v as views of one packed (B, S, Hq + 2·Hkv, D) projection:
+    the kernel reads their strides, nothing is copied."""
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv, _, _ = _attn_inputs(2, 96, 96, 8, 8, 64, dtype, cuda)
+        q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:8]
+        assert not q.is_contiguous()
+        got = fa_ops.flash_attention(q, k, v, causal=True, window=30, cap=50.0)
+        want = fa_ref.flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous(),
+                                          causal=True, window=30, cap=50.0)
+        torch.testing.assert_close(got.float(), want.float(), **B6_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_attention_raises_on_the_card_instead_of_falling_back(cuda):
+    q, k, v = _attn_inputs(1, 16, 16, 4, 2, 8, torch.bfloat16, cuda)
+    fa_ops.reset_launches()
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="devices"):
+        fa_ops.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="D <= 256"):
+        big = torch.zeros((1, 4, 2, 264), dtype=torch.bfloat16, device=cuda)
+        fa_ops.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="contiguous"):
+        wide = torch.zeros((1, 4, 2, 16), dtype=torch.bfloat16, device=cuda)[..., ::2]
+        fa_ops.flash_attention(wide, wide, wide)
+    assert fa_ops.launches[fa_ops.FLASH_ATTENTION] == 0
+    empty = fa_ops.flash_attention(q, k[:, :0], v[:, :0])
+    assert empty.shape == q.shape and not empty.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["auto", "direct", "chunked", "flash"])
+def test_attention_on_card_runs_b6_for_every_impl(cuda, impl):
+    from repro_torch.nn.attention import attention
+
+    q, k, v = _attn_inputs(2, 64, 64, 4, 2, 16, torch.float32, "cpu")
+    kw = dict(causal=True, window=16, cap=50.0)
+    want = attention(q, k, v, impl=impl, **kw)
+    fa_ops.reset_launches()
+    got = attention(q.to(cuda), k.to(cuda), v.to(cuda), impl=impl, **kw)
+    assert fa_ops.launches[fa_ops.FLASH_ATTENTION] == 1
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+    # kv_len: the plain paths on either device, no launch
+    got = attention(q.to(cuda), k.to(cuda), v.to(cuda), impl=impl, kv_len=40, **kw)
+    assert fa_ops.launches[fa_ops.FLASH_ATTENTION] == 1
+    torch.testing.assert_close(got.cpu(), attention(q, k, v, impl=impl, kv_len=40, **kw),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma2_9b", "starcoder2_7b", "qwen2_72b"])
+def test_transformer_on_card_matches_cpu(cuda, arch):
+    """A smoke config's forward, prefill and decode loop on the card (B6
+    once per layer of a forward) against the port on the CPU at 1e-4
+    (cuBLAS and CPU matmuls round differently; TF32 off)."""
+    import importlib
+
+    from repro_torch.models import transformer as T
+
+    cfg = importlib.import_module(f"repro_torch.configs.{arch}").smoke_config()
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    on_card = chip_smoke.moved(params, cuda)
+    toks = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, 40)).astype(np.int32))
+    fa_ops.reset_launches()
+    got = T.prefill(on_card, toks.to(cuda), cfg)
+    assert fa_ops.launches[fa_ops.FLASH_ATTENTION] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), T.prefill(params, toks, cfg), rtol=1e-4, atol=1e-4)
+    caches = [T.init_cache(cfg, 2, 24, device=d) for d in ("cpu", cuda)]
+    for t in range(20):
+        lg_cpu, caches[0] = T.decode_step(params, caches[0], toks[:, t:t + 1], cfg)
+        lg_card, caches[1] = T.decode_step(on_card, caches[1], toks[:, t:t + 1].to(cuda), cfg)
+        torch.testing.assert_close(lg_card.cpu(), lg_cpu, rtol=1e-4, atol=1e-4)
