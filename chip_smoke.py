@@ -10,7 +10,10 @@ none of whose failures is caught:
    ``src/repro_torch/kernels/*/csrc``, one ``nvcc`` per source, together;
 2. hold every kernel against its plain PyTorch version on the card over
    ragged shapes: bitwise, or for seg_mm's float sums within a bound on
-   reordered summation, and bitwise run to run;
+   reordered summation, and bitwise run to run, or for flash_attention
+   within the reference's tolerances, each case on the kernel
+   ``kernel.variant`` names (the wgmma/TMA kernel, the mma.sync kernel for
+   other bf16 inputs, the SIMT kernel for f32);
 3. the main path at the paper's Tab. I ``graph3`` scale (10M edges drawn
    uniformly from a pool of 10M ids, §VII-A; 50 labels, 50 relationships,
    one int64 vertex column, one float64 edge column): build a
@@ -49,8 +52,8 @@ none of whose failures is caught:
 3e. LM serving: ``gemma2-9b`` at its published widths and depth (42
    layers, d 3,584, 16 query and 8 KV heads of 256, d_ff 14,336, vocab
    256,000; 9.24 B random weights from ``--seed`` held in bf16, 18.5 GB on
-   the card) with its prefill attention on the flash_attention kernel
-   answers ``prefill_8k`` (one 8,192-token prompt: ``prefill_32k`` of
+   the card) with its prefill attention on the wgmma/TMA flash_attention
+   kernel (every launch of both prefill kinds) answers ``prefill_8k`` (one 8,192-token prompt: ``prefill_32k`` of
    ``LM_SHAPES`` cut from 32 x 32,768), ``prefill_batch`` (8 x 1,024) and
    ``generate`` (``launch/serve.py``'s decode loop, batch 4, 16 prompt and
    16 greedy tokens), timed; checked (b) at full depth: every layer's
@@ -62,7 +65,8 @@ none of whose failures is caught:
 4. the byte layout (``byte_masks()``): build it and answer a fused pattern,
    which runs the byte kernel; its masks must equal the packed graph's;
 5. time each kernel at the main path's shapes beside its plain version,
-   its bound and (where one exists) a PyTorch call computing the same.
+   its bound and (where one exists) a PyTorch call computing the same;
+   flash_attention also beside the mma.sync kernel it replaced on the path.
 
 Kernel launch counts are zeroed right before each path and read right
 after it; a kernel of the path that did not launch fails the run.  The
@@ -97,6 +101,7 @@ SOURCES = {  # kernel family -> its CUDA source
     "seg_mm": "src/repro_torch/kernels/seg_mm/csrc/seg_mm.cu",
     "embedding_bag": "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
     "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    "flash_attention_sm90": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu",
 }
 FANOUTS = [15, 10]  # GraphSAGE 15-10
 CHECK_ROWS = 4096  # rows of a sampled layer held to the Python-loop oracle
@@ -279,8 +284,8 @@ def device_profile(pg, reqs) -> dict:
 # ------------------------------------------------------------------ phases
 def kernel_checks(device) -> dict:
     """Every kernel against its plain version, bitwise, on ragged shapes
-    (B5 and B6 within their tolerances); returns what B6's f32 checks show
-    of f32 rounding (``flash_attention_checks``)."""
+    (B5 and B6 within their tolerances); returns the shares of the
+    tolerance B6's cases use (``flash_attention_checks``)."""
     import torch
 
     from repro_torch.kernels.bitmap_query import ops, ref
@@ -306,9 +311,9 @@ def kernel_checks(device) -> dict:
     window_select_checks(device)
     embedding_bag_checks(device)
     seg_mm_checks(device)
-    rounding = flash_attention_checks(device)
+    shares = flash_attention_checks(device)
     torch.cuda.synchronize()
-    return rounding
+    return shares
 
 
 def window_select_checks(device) -> None:
@@ -414,13 +419,17 @@ def tolerance_share(got, want, tol: float) -> float:
 def flash_attention_checks(device) -> dict:
     """B6 against its plain version: ``prefill_8k``'s layer shapes (q (1,
     8192, 16, 256), k and v (1, 8192, 8, 256), bf16, cap 50) with the local
-    window and without, on scores at the cap's scale (``QK_SCALE``); f32
-    cases; rows with no valid key (q_offset past the window: the mean of V);
-    ragged lengths, GQA and narrow heads.  Where the cap is set and the
-    scores reach it, the same call without the cap must fail the check:
-    the check can tell the softcap from none.  Returns, for each f32 case
-    held in float64, the shares of the tolerance that the kernel and the
-    f32 plain version use against it."""
+    window and without, on scores at the cap's scale (``QK_SCALE``); the
+    wgmma/TMA kernel's own cases (interior and edge tiles, window and none,
+    causal off, G = 1, 2, 4 and odd, D = 8..256, ragged Sq and Skv,
+    q_offset, strided H, rows with no valid key); bf16 inputs TMA does not
+    take (the mma.sync kernel); f32 cases (the SIMT kernel); rows with no
+    valid key (q_offset past the window: the mean of V).  Each case names
+    the kernel it must run, read from the per-kernel launch counts.  Where
+    the cap is set and the scores reach it, the same call without the cap
+    must fail the check: the check can tell the softcap from none.  Returns,
+    for each case, the share of the tolerance the kernel uses and, for each
+    f32 case held in float64, the share the f32 plain version uses."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops, ref
@@ -428,39 +437,79 @@ def flash_attention_checks(device) -> dict:
     gen = torch.Generator(device=device).manual_seed(11)
     layer = (1, 8192, 8192, 16, 8, 256)
     big, small = QK_SCALE, 0.3
-    cases = [(layer, torch.bfloat16, big, dict(causal=True, window=4096, cap=50.0)),
-             (layer, torch.bfloat16, big, dict(causal=True, cap=50.0)),
-             ((2, 640, 700, 16, 8, 256), torch.float32, big, dict(causal=True, window=300, cap=50.0)),
-             ((1, 256, 256, 16, 8, 256), torch.bfloat16, 5.0, dict(causal=True, window=64, cap=30.0)),
-             ((1, 256, 256, 16, 8, 256), torch.float32, big, dict(causal=True, window=64, cap=30.0)),
-             ((1, 77, 131, 4, 2, 16), torch.float32, small, dict(causal=True)),
-             ((2, 65, 300, 18, 2, 128), torch.bfloat16, small,
-              dict(causal=True, window=40, q_offset=200)),
-             ((1, 33, 70, 2, 2, 40), torch.bfloat16, small, dict(causal=False, window=20, cap=30.0))]
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(layer, bf16, big, dict(causal=True, window=4096, cap=50.0)),
+             (layer, bf16, big, dict(causal=True, cap=50.0)),
+             ((2, 640, 700, 16, 8, 256), f32, big, dict(causal=True, window=300, cap=50.0)),
+             ((1, 256, 256, 16, 8, 256), bf16, 5.0, dict(causal=True, window=64, cap=30.0)),
+             ((1, 256, 256, 16, 8, 256), f32, big, dict(causal=True, window=64, cap=30.0)),
+             ((1, 77, 131, 4, 2, 16), f32, small, dict(causal=True)),
+             ((2, 65, 300, 18, 2, 128), bf16, small, dict(causal=True, window=40, q_offset=200)),
+             ((1, 33, 70, 2, 2, 40), bf16, small, dict(causal=False, window=20, cap=30.0)),
+             # the wgmma/TMA kernel: G = 1, 2, 4, D = 64, 128, 256, ragged lengths
+             ((1, 1000, 1000, 16, 8, 256), bf16, big, dict(causal=True, cap=50.0)),
+             ((1, 300, 300, 4, 4, 256), bf16, big, dict(causal=True, window=100, cap=50.0)),
+             ((2, 200, 333, 8, 2, 128), bf16, big, dict(causal=False, cap=30.0)),
+             ((1, 130, 250, 6, 3, 64), bf16, small, dict(causal=True, window=70, q_offset=120)),
+             ((1, 100, 130, 4, 4, 8), bf16, small, dict(causal=True)),
+             ((1, 200, 200, 4, 2, 192), bf16, small, dict(causal=True, window=100)),
+             # bf16 the TMA kernel does not take: D % 8 != 0 (the mma.sync kernel)
+             ((1, 90, 120, 4, 2, 36), bf16, small, dict(causal=True, window=50, cap=30.0))]
     masked = dict(causal=True, window=64, q_offset=400)  # q_offset + i - 63 > Skv - 1 = 255
-    rounding = {}
-    cases += [((1, 128, 256, 16, 8, 256), dt, small, masked) for dt in (torch.bfloat16, torch.float32)]
+    shares = {}
+    cases += [((1, 128, 256, 16, 8, 256), dt, small, masked) for dt in (bf16, f32)]
     for (b, sq, skv, hq, hkv, d), dtype, scale, kw in cases:
         q = (torch.randn((b, sq, hq, d), generator=gen, device=device) * scale).to(dtype)
         k = (torch.randn((b, skv, hkv, d), generator=gen, device=device) * scale).to(dtype)
         v = torch.randn((b, skv, hkv, d), generator=gen, device=device).to(dtype)
-        what = f"B6 {(b, sq, skv, hq, hkv, d)} {dtype} qk x{scale} {kw}"
-        got = ops.flash_attention(q, k, v, **kw)
-        wide = dtype == torch.float32 and scale > 1  # the plain version in float64 (QK_SCALE)
-        want = ref.flash_attention_ref(*(t.double() if wide else t for t in (q, k, v)), **kw)
-        attention_close(got, want, what)
-        if wide:
-            rounding[what] = {"kernel": tolerance_share(got, want, B6_TOL["float32"]),
-                              "plain_f32": tolerance_share(ref.flash_attention_ref(q, k, v, **kw),
-                                                           want, B6_TOL["float32"])}
-        if kw is masked:
-            mean = v.float().mean(dim=1, keepdim=True).repeat_interleave(hq // hkv, dim=2)
-            attention_close(got, mean.expand(got.shape).to(dtype), what + " = mean of V")
-        if kw.get("cap") is not None and scale > 1:
-            uncapped = ops.flash_attention(q, k, v, **{**kw, "cap": None})
-            check(not attention_within(uncapped, want), f"{what}: cap=None fails the check")
-        del q, k, v, got, want
-    return rounding
+        # fresh contiguous tensors: TMA takes every bf16 case with D % 8 == 0
+        expect = "simt" if dtype == f32 else ("sm90" if d % 8 == 0 else "mma")
+        flash_attention_case(q, k, v, kw, scale, shares, expect, mean_of_v=kw is masked)
+        del q, k, v
+    # strided views of one packed projection (H strides TMA takes), and an H stride it
+    # does not take (264 bytes: the mma.sync kernel)
+    packed = (torch.randn((1, 300, 8, 128), generator=gen, device=device) * big).to(bf16)
+    odd = torch.zeros((1, 300, 4, 132), dtype=bf16, device=device)[..., :128]
+    odd.copy_(packed[:, :, :4])
+    for q, expect in ((packed[:, :, :4], "sm90"), (odd, "mma")):
+        flash_attention_case(q, packed[:, :, 4:6], packed[:, :, 6:], dict(causal=True, window=100,
+                             cap=50.0), big, shares, expect)
+    return shares
+
+
+def flash_attention_case(q, k, v, kw: dict, scale: float, shares: dict, expect: str, *,
+                         mean_of_v: bool = False) -> None:
+    """One phase 2 case of B6 (``flash_attention_checks``): ``kernel.variant``
+    names the ``expect`` kernel and it runs the case (counted under its
+    name), within the tolerance of the plain version (f32 at the cap's
+    scale: in float64); ``shares`` gets the share of the tolerance used."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
+
+    b, sq, hq, d = q.shape
+    name = kernel.variant(q, k, v)
+    what = f"B6 {name} {(b, sq, k.shape[1], hq, k.shape[2], d)} {q.dtype} qk x{scale} {kw}"
+    check(name == expect, f"{what}: runs the {expect} kernel")
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, **kw)
+    check(ops.launches[ops.COUNTERS[name]] == ops.launches[ops.FLASH_ATTENTION] == 1,
+          f"{what}: one launch of the {name} kernel")
+    wide = q.dtype == torch.float32 and scale > 1  # the plain version in float64 (QK_SCALE)
+    want = ref.flash_attention_ref(*(t.double() if wide else t for t in (q, k, v)), **kw)
+    attention_close(got, want, what)
+    tol = B6_TOL[str(q.dtype).split(".")[-1]]
+    shares[what] = {"kernel": tolerance_share(got, want, tol)}
+    if wide:
+        shares[what]["plain_f32"] = tolerance_share(ref.flash_attention_ref(q, k, v, **kw), want,
+                                                    tol)
+    if mean_of_v:
+        mean = v.float().mean(dim=1, keepdim=True).repeat_interleave(hq // k.shape[2], dim=2)
+        attention_close(got, mean.expand(got.shape).to(q.dtype), what + " = mean of V")
+    if kw.get("cap") is not None and scale > 1:
+        uncapped = ops.flash_attention(q, k, v, **{**kw, "cap": None})
+        check(not attention_within(uncapped, want), f"{what}: cap=None fails the check")
+    ops.reset_launches()
 
 
 def sums_close(got, want, scale) -> bool:
@@ -473,7 +522,8 @@ def sums_close(got, want, scale) -> bool:
 def seg_mm_checks(device) -> None:
     """B5 against its plain version on the card over ragged shapes: every
     D the path runs and wider, hub rows (degree 10,000 and more), empty
-    rows, unsorted dst, weighted and not; and bitwise run to run."""
+    rows, unsorted dst, weighted and not; and bitwise run to run; src ids
+    N, N + 5 and -N - 2, which read the rows the reference's gather reads."""
     import torch
 
     from repro_torch.kernels.seg_mm import ops, ref
@@ -497,6 +547,17 @@ def seg_mm_checks(device) -> None:
                 what = f"B5 D={d} n={n} E={e} weighted={ew is not None}"
                 check(sums_close(got, want, scale), what)
                 check(got.equal(ops.seg_mm(x, src, dst, n, edge_weight=ew)), what + " run to run")
+    # src ids outside [0, N): the reference's gather wraps [-N, -1] and clamps the rest
+    n, e = 5000, 40_000
+    for bad in (n, n + 5, -n - 2):
+        src = torch.randint(0, n, (e,), dtype=torch.int32, generator=gen)
+        src[::97] = bad
+        dst = torch.randint(0, n, (e,), dtype=torch.int32, generator=gen)
+        x = torch.randn((n, 16), generator=gen)
+        x, src, dst = (t.to(device) for t in (x, src, dst))
+        got = ops.seg_mm(x, src, dst, n)
+        want = ref.seg_mm_ref(x, src, dst, n)
+        check(sums_close(got, want, ref.seg_mm_ref(x.abs(), src, dst, n)), f"B5 src id {bad}")
 
 
 def answer(pg, reqs, sync):
@@ -1310,6 +1371,7 @@ def lm_phase(seed: int, device: str, sync) -> dict:
         # then 3 timed ones
         with counting_flash(2 if kind == "prefill_8k" else 0) as (calls, by_layer):
             runs = [request(toks) for _ in range(4)]
+        n_sm90 = ops.launches[ops.COUNTERS["sm90"]]
         n = launched()
         check(sum(by_layer.values()) == n, f"{kind}: B6 launches {n} = calls by layer {by_layer}")
         if kind == "prefill_8k":
@@ -1318,12 +1380,14 @@ def lm_phase(seed: int, device: str, sync) -> dict:
             check(n == len(runs) * cfg.n_layers,
                   f"{kind}: B6 launched {n} times for {len(runs)} requests of "
                   f"{cfg.n_layers} layers")
+            check(n_sm90 == n, f"{kind}: {n_sm90} of {n} B6 launches on the wgmma/TMA kernel")
         lg = runs[-1][0]
         check(lg.shape == (b, 1, cfg.vocab) and bool(torch.isfinite(lg.float()).all()),
               f"{kind}: logits shape and finite")
         med = statistics.median(ms for _, ms in runs[1:])
         out[kind] = {"median_ms": med, "runs_ms": [ms for _, ms in runs[1:]], "batch": b,
                      "seq": s, "tokens_per_s": b * s / med * 1e3, "b6_launches": n,
+                     "b6_sm90_launches": n_sm90,
                      "b6_launches_by_layer": dict(by_layer), "b6_per_request": n // len(runs)}
     if full:  # on the CPU attention takes the reference's plain branch: no B6 call
         check(len(b6_calls) == 2 and b6_calls[0][3]["window"] == cfg.window
@@ -1469,23 +1533,37 @@ def attention_pairs(sq: int, skv: int, *, causal: bool = True, window=None, cap=
 
 
 def flash_attention_entry(name: str, call, launches: int) -> dict:
-    """Phase 5's B6 line for one recorded prefill call (q, k, v, keywords).
+    """Phase 5's B6 line for one recorded prefill call (q, k, v, keywords),
+    on the kernel the main path ran (``kernel.variant``: the wgmma/TMA
+    kernel at these shapes), with the mma.sync kernel it replaced timed
+    beside it at the same shape (``ms_mma_sync_kernel``, launched by name;
+    not counted).
     The bound counts what these masks keep: 4·D FLOP per kept (q, k) pair
     and query head (two products) at the dense bf16 rate, against q, k, v
-    read once and o written once.  The yardstick is
+    read once and o written once.  The yardsticks are
     ``scaled_dot_product_attention`` with GQA and a boolean mask of the
-    same causal window, without the softcap: not the same function, as no
-    PyTorch call softcaps attention scores."""
+    same causal window (``library_ms``) and, on the global layer, with
+    ``is_causal=True`` and no mask (``library_causal_ms``, which may take
+    the flash backend), both without the softcap: not the same function,
+    as no PyTorch call softcaps attention scores."""
     import torch
 
-    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
 
     q, k, v, kw = call
     b, sq, hq, d = q.shape
     skv = k.shape[1]
+    which = kernel.variant(q, k, v)
     got = ops.flash_attention(q, k, v, **kw)
     want = ref.flash_attention_ref(q, k, v, **kw)
     err = attention_close(got, want, f"timed {name}")
+    o_mma = torch.empty_like(q)
+
+    def mma_sync():
+        kernel.launch_flash_attention(q, k, v, o_mma, variant="mma", **kw)
+
+    mma_sync()
+    err_mma = attention_close(o_mma, want, f"timed {name} on the mma.sync kernel")
     del want
     pairs = attention_pairs(sq, skv, **kw)
     flops = 4 * d * hq * b * pairs
@@ -1502,20 +1580,31 @@ def flash_attention_entry(name: str, call, launches: int) -> dict:
         return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                                 enable_gqa=True)
 
-    entry = {"name": name, "route": "cuda", "source": SOURCES["flash_attention"],
-             "replaces": "src/repro/kernels/flash_attention/kernel.py:73",
+    def library_causal():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                enable_gqa=True)
+
+    entry = {"name": name, "route": "cuda",
+             "source": SOURCES["flash_attention_sm90" if which == "sm90" else "flash_attention"],
+             "replaces": "src/repro/kernels/flash_attention/kernel.py:73", "kernel": which,
              "launches": launches, "max_abs_err": err,
              "ms": time_ms(lambda: ops.flash_attention(q, k, v, **kw), 10),
+             "ms_mma_sync_kernel": time_ms(mma_sync, 10), "mma_sync_kernel_max_abs_err": err_mma,
              "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 2),
              "bound_ms": max(flops / rate, moved_bytes / HBM_BYTES_PER_S) * 1e3,
              "bound_by": "operations" if flops / rate >= moved_bytes / HBM_BYTES_PER_S
              else "bytes",
              "library_ms": time_ms(library, 10),
              "library_note": "not the same function: no softcap",
+             "library_causal_ms": (time_ms(library_causal, 10) if kw.get("window") is None
+                                   and kw.get("q_offset", 0) == 0 and sq == skv else None),
+             "library_causal_note": "not the same function: no softcap; is_causal, no mask",
              "shape": {"B": b, "Sq": sq, "Skv": skv, "Hq": hq, "Hkv": k.shape[2], "D": d,
                        "dtype": str(q.dtype), **{kk: vv for kk, vv in kw.items()},
                        "pairs": pairs, "flop": flops}}
     entry["tflop_per_s"] = flops / entry["ms"] / 1e9
+    entry["tflop_per_s_mma_sync_kernel"] = flops / entry["ms_mma_sync_kernel"] / 1e9
+    entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
     return entry
 
 
@@ -1682,13 +1771,17 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
     if device == "cuda":
         with ThreadPoolExecutor(len(SOURCES)) as pool:
             list(pool.map(lambda build: build(), (kernel.build, ns_kernel.build, sm_kernel.build,
-                                                  eb_kernel.build, fa_kernel.build)))
+                                                  eb_kernel.build, fa_kernel.build,
+                                                  fa_kernel.build_sm90)))
     out["kernel_build_s"] = time.perf_counter() - t0
 
     # --- phase 2: kernels against their plain versions
     if device == "cuda":
-        out["b6_f32_rounding"] = kernel_checks(device)
-    print("phase 2 ok: kernels equal their plain versions", flush=True)
+        out["b6_tolerance_share"] = kernel_checks(device)
+    print("phase 2 ok: kernels equal their plain versions", json.dumps(
+        {"b6_largest_tolerance_share": max((v["kernel"] for v in
+                                            out.get("b6_tolerance_share", {}).values()),
+                                           default=None)}), flush=True)
 
     # --- phase 3: the main path (packed layout)
     src, dst = random_uniform_graph(edges, seed=seed)
@@ -1850,6 +1943,7 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
         b6 = [flash_attention_entry(f"flash_attention (B6) prefill_8k {kind} layer", call,
                                     out["lm"]["prefill_8k"]["b6_launches_by_layer"][kind])
               for kind, call in zip(("local", "global"), b6_calls)]
+        check(all(e["kernel"] == "sm90" for e in b6), "prefill_8k's layers ran the wgmma/TMA kernel")
         out["kernels"] = [b1, b2, b3, *b4, *b5, *b6]
         out["peak_mem_gib"] = max(torch.cuda.max_memory_allocated() / 2**30,
                                   out["gnn"]["peak_mem_gib"], out["gnn"]["peak_mem_gib_before"],

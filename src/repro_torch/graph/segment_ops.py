@@ -7,6 +7,9 @@ maxima and minima, and ``bincount`` for counts (degrees).  Edges whose segment i
 An empty segment's maximum is -inf and its minimum +inf (the integer
 extremes for integer data); ``gather_scatter(agg="max")`` and
 ``segment_softmax`` then map non-finite values to 0, as the reference does.
+Gathers by id (``x[src]``, a degree or a segment's maximum read back per
+edge) read what the reference's read: ids in [-n, -1] wrap, ids >= n read
+row n - 1 and ids below -n row 0 (``kernels/seg_mm/ref.gather_ids``).
 
 ``gather_scatter`` is the generic MPNN primitive; ``spmm_di`` the GCN-style
 Ã·X product, which runs the CUDA kernel B5 (``kernels/seg_mm``) on CUDA
@@ -18,6 +21,8 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+
+from repro_torch.kernels.seg_mm.ref import gather_ids
 
 __all__ = [
     "segment_sum_sorted",
@@ -97,7 +102,7 @@ def segment_softmax(scores, segment_ids, num_segments: int):
     (E,) or (E, H), one softmax per trailing index."""
     seg_max = segment_max(scores, segment_ids, num_segments)
     seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
-    ids = segment_ids.to(torch.int64)
+    ids = gather_ids(segment_ids, num_segments)
     ex = torch.exp(scores - seg_max[ids])
     denom = segment_sum(ex, segment_ids, num_segments)
     return ex / torch.clamp(denom[ids], min=1e-30)
@@ -117,7 +122,7 @@ def gather_scatter(
 
     x: (n, d) node features; src_idx/dst_idx: (m,) DI edge arrays.
     """
-    msgs = x[src_idx.to(torch.int64)]
+    msgs = x[gather_ids(src_idx, x.shape[0])]
     if msg_fn is not None:
         msgs = msg_fn(msgs)
     if edge_weight is not None:
@@ -140,10 +145,11 @@ def degree_norm(src_idx, dst_idx, num_nodes: int, *, mode: str = "sym") -> torch
     """
     d_out = segment_count(src_idx, num_nodes) + 1.0
     d_in = segment_count(dst_idx, num_nodes) + 1.0
+    src, dst = gather_ids(src_idx, num_nodes), gather_ids(dst_idx, num_nodes)
     if mode == "sym":
-        return torch.rsqrt(d_out[src_idx.to(torch.int64)] * d_in[dst_idx.to(torch.int64)])
+        return torch.rsqrt(d_out[src] * d_in[dst])
     if mode == "rw":
-        return 1.0 / d_in[dst_idx.to(torch.int64)]
+        return 1.0 / d_in[dst]
     raise ValueError(f"unknown mode {mode!r}")
 
 

@@ -7,10 +7,14 @@ window (q_pos - k_pos < window, q_pos = q_offset + i), Gemma-2's softcap
 ``cap·tanh(s/cap)`` and scale D^-0.5, in the reference's semantics (a row
 with no valid key returns the mean of all V rows; ``ref.py``).  It checks
 its inputs, sends CPU tensors to the plain version
-(``ref.flash_attention_ref``) and launches the CUDA kernel (``kernel.py``)
-on CUDA tensors — there is no fallback from the card to the plain version.
-``launches`` counts kernel launches (never plain-version calls);
-``reset_launches()`` zeroes it.
+(``ref.flash_attention_ref``) and launches a CUDA kernel (``kernel.py``) on
+CUDA tensors: the one ``kernel.variant`` names from dtype, D, strides and
+alignment (``sm90``: wgmma and TMA; ``mma``: mma.sync, other bf16 inputs;
+``simt``: f32).  There is no fallback from one kernel to another or from
+the card to the plain version: a refused launch raises.
+``launches`` counts kernel launches (never plain-version calls): the total
+under ``FLASH_ATTENTION`` and each kernel under ``COUNTERS[variant]``;
+``reset_launches()`` zeroes them.
 """
 from __future__ import annotations
 
@@ -22,8 +26,9 @@ from repro_torch.kernels.flash_attention import kernel, ref
 
 __all__ = ["flash_attention", "launches", "reset_launches"]
 
-FLASH_ATTENTION = "flash_attention"  # B6
-launches: Dict[str, int] = {FLASH_ATTENTION: 0}
+FLASH_ATTENTION = "flash_attention"  # B6, every kernel
+COUNTERS = {v: f"{FLASH_ATTENTION}_{v}" for v in kernel.VARIANTS}  # B6 by kernel
+launches: Dict[str, int] = {FLASH_ATTENTION: 0, **{c: 0 for c in COUNTERS.values()}}
 
 
 def reset_launches() -> None:
@@ -72,7 +77,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     if q.numel() == 0 or k.shape[1] == 0:  # no keys: every output row sums nothing
         return torch.zeros(q.shape, dtype=q.dtype, device=q.device)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    which = kernel.variant(q, k, v)
     kernel.launch_flash_attention(q, k, v, o, causal=causal, window=window, cap=cap,
-                                  q_offset=q_offset)
+                                  q_offset=q_offset, variant=which)
     launches[FLASH_ATTENTION] += 1
+    launches[COUNTERS[which]] += 1
     return o

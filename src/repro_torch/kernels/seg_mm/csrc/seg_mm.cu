@@ -5,7 +5,10 @@
 //     _seg_mm_kernel, host layout build_layout).
 //     out[v] = sum over edges e with dst[e] = v of w[e] * x[src[e]], for
 //     v in [0, n_rows); x (N_src, D) f32 row-major, src (E,) int32,
-//     w (E,) f32 or none (every weight 1), out (n_rows, D) f32.  The
+//     w (E,) f32 or none (every weight 1), out (n_rows, D) f32.  A src id
+//     outside [0, N_src) reads the row the reference's gather reads: ids in
+//     [-N_src, -1] wrap, larger ids read row N_src - 1, smaller ones row 0,
+//     so no id reads outside x.  The
 //     layout (built on the device by ops.py) is the stable dst order
 //     order (E',) int32 and the row pointers row_ptr (n_rows + 1,) int32:
 //     row v's edges are order[row_ptr[v] .. row_ptr[v+1]), in ascending
@@ -65,7 +68,7 @@ __global__ void __launch_bounds__(kThreads)
 seg_mm_kernel(const float* __restrict__ x, const int32_t* __restrict__ src,
               const float* __restrict__ w, const int32_t* __restrict__ order,
               const int32_t* __restrict__ row_ptr, float* __restrict__ out,
-              int64_t n_rows, int64_t d) {
+              int64_t n_rows, int64_t d, int32_t n_src) {
   constexpr int kRowsPerBlock = kThreads / G;
   const int gl = threadIdx.x % G;  // lane within the group
   const int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + threadIdx.x / G;
@@ -86,6 +89,8 @@ seg_mm_kernel(const float* __restrict__ x, const int32_t* __restrict__ src,
       if (base + gl < end) {
         const int32_t e = __ldg(order + base + gl);
         s = __ldg(src + e);
+        s = s < 0 ? s + n_src : s;                      // wrap [-N_src, -1]
+        s = s < 0 ? 0 : (s >= n_src ? n_src - 1 : s);  // clamp the rest
         if (w != nullptr) wt = __ldg(w + e);
       }
       const int cnt = end - base < G ? (int)(end - base) : G;  // group-uniform
@@ -113,19 +118,19 @@ seg_mm_kernel(const float* __restrict__ x, const int32_t* __restrict__ src,
 
 template <int G>
 void launch(const float* x, const int32_t* src, const float* w, const int32_t* order,
-            const int32_t* row_ptr, float* out, int64_t n_rows, int64_t d,
+            const int32_t* row_ptr, float* out, int64_t n_rows, int64_t d, int32_t n_src,
             cudaStream_t stream) {
   constexpr int64_t kRowsPerBlock = kThreads / G;
   const int64_t blocks = (n_rows + kRowsPerBlock - 1) / kRowsPerBlock;
   seg_mm_kernel<G><<<(unsigned)blocks, kThreads, 0, stream>>>(x, src, w, order, row_ptr, out,
-                                                             n_rows, d);
+                                                             n_rows, d, n_src);
 }
 
 }  // namespace
 
 extern "C" int seg_mm_launch(const void* x, const void* src, const void* w, const void* order,
                              const void* row_ptr, void* out, long long n_rows, long long d,
-                             void* stream) {
+                             long long n_src, void* stream) {
   if (n_rows > 0 && d > 0) {
     const float* xp = static_cast<const float*>(x);
     const int32_t* sp = static_cast<const int32_t*>(src);
@@ -135,17 +140,17 @@ extern "C" int seg_mm_launch(const void* x, const void* src, const void* w, cons
     float* outp = static_cast<float*>(out);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (d <= 1) {
-      launch<1>(xp, sp, wp, op, rp, outp, n_rows, d, st);
+      launch<1>(xp, sp, wp, op, rp, outp, n_rows, d, (int32_t)n_src, st);
     } else if (d <= 2) {
-      launch<2>(xp, sp, wp, op, rp, outp, n_rows, d, st);
+      launch<2>(xp, sp, wp, op, rp, outp, n_rows, d, (int32_t)n_src, st);
     } else if (d <= 4) {
-      launch<4>(xp, sp, wp, op, rp, outp, n_rows, d, st);
+      launch<4>(xp, sp, wp, op, rp, outp, n_rows, d, (int32_t)n_src, st);
     } else if (d <= 8) {
-      launch<8>(xp, sp, wp, op, rp, outp, n_rows, d, st);
+      launch<8>(xp, sp, wp, op, rp, outp, n_rows, d, (int32_t)n_src, st);
     } else if (d <= 16) {
-      launch<16>(xp, sp, wp, op, rp, outp, n_rows, d, st);
+      launch<16>(xp, sp, wp, op, rp, outp, n_rows, d, (int32_t)n_src, st);
     } else {
-      launch<32>(xp, sp, wp, op, rp, outp, n_rows, d, st);
+      launch<32>(xp, sp, wp, op, rp, outp, n_rows, d, (int32_t)n_src, st);
     }
   }
   return static_cast<int>(cudaGetLastError());

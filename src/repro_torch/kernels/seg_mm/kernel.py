@@ -23,7 +23,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "seg_mm.cu"
 
 def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.seg_mm_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
@@ -39,11 +39,13 @@ def launch_seg_mm(x: torch.Tensor, src: torch.Tensor, w: Optional[torch.Tensor],
                   order: torch.Tensor, row_ptr: torch.Tensor, out: torch.Tensor) -> None:
     """B5: ``out`` (n, D) f32 ← per row v, the sum over its edges
     ``order[row_ptr[v]:row_ptr[v+1]]`` of ``w[e] * x[src[e]]`` (``w`` None:
-    weight 1).  ``x`` (N_src, D) f32; ``src``, ``order``, ``row_ptr`` int32."""
+    weight 1).  ``x`` (N_src, D) f32 with N_src >= 1 where there are edges;
+    ``src``, ``order``, ``row_ptr`` int32 (src ids outside [0, N_src) read
+    the rows ``ref.gather_ids`` names)."""
     fn = LIBRARY.load().seg_mm_launch
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), src.data_ptr(), None if w is None else w.data_ptr(),
                  order.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
-                 out.shape[0], out.shape[1], stream)
+                 out.shape[0], out.shape[1], x.shape[0], stream)
     _build.check_launch(fn, err)

@@ -123,12 +123,15 @@ def _check(x, src_idx, dst_idx, n_nodes: int, edge_weight) -> None:
         raise ValueError(f"{name}: inputs must be contiguous")
     if n_nodes < 0 or max(n_nodes, src_idx.shape[0], x.shape[0]) >= 2**31:
         raise ValueError(f"{name}: n_nodes, edges and rows must lie in [0, 2**31)")
+    if x.shape[0] == 0 and src_idx.shape[0] > 0:
+        raise ValueError(f"{name}: x has no rows for the {src_idx.shape[0]} edges to read")
 
 
 def seg_mm(x: torch.Tensor, src_idx: torch.Tensor, dst_idx: torch.Tensor, n_nodes: int, *,
            edge_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out[v] = Σ_{e: dst_e = v} w_e · x[src_e] (B5 on the card).  ``x``
-    (N_src, D) f32, ``src_idx``/``dst_idx`` (E,) int32 (src must index x;
+    (N_src, D) f32, ``src_idx``/``dst_idx`` (E,) int32 (a src id outside
+    [0, N_src) reads the row the reference's gather reads, ``ref.gather_ids``;
     dst outside [0, n_nodes) is dropped), ``edge_weight`` (E,) f32 or None.
     Returns (n_nodes, D) f32; rows with no edge are zero.  Any order of
     ``dst_idx`` works; the last layout is kept for the same ``dst_idx``."""

@@ -13,7 +13,7 @@ between layers; float32 matmuls run without TF32 on the card.
 
 ``retrieval_cand`` scores one query against 10⁶ candidates: one matvec
 against the candidate matrix (``torch.matmul``, as the reference leaves it
-to XLA) + ``torch.topk``.
+to XLA) + a stable descending sort (``lax.top_k``'s order of ties).
 
 Params are a dict ``{"tables", "bot", "top"}``; ``params_from_reference``
 loads the reference's param tree (numpy) so both packages compute the same
@@ -138,9 +138,13 @@ def retrieval_scores(params: Dict, dense: torch.Tensor, sparse_idx: torch.Tensor
                      candidates: torch.Tensor, cfg: DLRMConfig, *, top_k: int = 100):
     """Score one query against (n_cand, embed_dim) candidates: matvec +
     top-k.  dense: (1, 13); sparse_idx: (1, 26, mh).  Returns (values (k,)
-    f32, indices (k,) int64), best first."""
+    f32, indices (k,) int64), best first and, among equal scores, the lower
+    index first, as ``lax.top_k`` orders them (a stable descending sort)."""
     d = mlp_stack(params["bot"], dense.to(cfg.dtype), final_act=True)
     s = _embedding_bag(params["tables"], sparse_idx, cfg).to(cfg.dtype)
     q = d + torch.sum(s, dim=1)  # (1, D) pooled query embedding
     scores = (candidates.to(cfg.dtype) @ q[0]).to(torch.float32)  # (n_cand,)
-    return torch.topk(scores, top_k)
+    if not 0 <= top_k <= scores.shape[0]:
+        raise ValueError(f"top_k must lie in [0, {scores.shape[0]}], got {top_k}")
+    vals, ids = torch.sort(scores, descending=True, stable=True)
+    return vals[:top_k], ids[:top_k]

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.device import resolve_device
 from repro_torch.graph.segment_ops import gather_scatter, segment_softmax, segment_sum
+from repro_torch.kernels.seg_mm.ref import gather_ids
 from repro_torch.models.gcn import node_nll
 from repro_torch.models.gnn_common import GraphBatch, params_from_numpy
 from repro_torch.nn.layers import init_linear, linear
@@ -81,8 +82,9 @@ def _gat_from_reference(params: Dict, cfg: GATConfig, device) -> Dict:
 
 def gat_forward(params: Dict, batch: GraphBatch, cfg: GATConfig) -> torch.Tensor:
     x = batch.x.to(cfg.dtype)
-    src, dst = batch.edge_src.to(torch.int64), batch.edge_dst.to(torch.int64)
     n = batch.n_nodes
+    # ids outside [0, n) read the rows the reference's gathers read
+    src, dst = gather_ids(batch.edge_src, n), gather_ids(batch.edge_dst, n)
     _, dims_out, heads = _gat_shapes(cfg)
     emask = batch.edge_mask[:, None]
     for i, lp in enumerate(params["layers"]):

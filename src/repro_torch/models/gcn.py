@@ -26,7 +26,7 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.graph.segment_ops import degree_norm, segment_count, spmm_di
 from repro_torch.models.gnn_common import GraphBatch, params_from_numpy
-from repro_torch.nn.layers import init_linear, linear
+from repro_torch.nn.layers import init_linear, label_logits, linear
 
 __all__ = ["GCNConfig", "GCN", "init_params", "params_from_reference", "forward", "loss_fn",
            "node_nll"]
@@ -97,13 +97,15 @@ def forward(params: Dict, batch: GraphBatch, cfg: GCNConfig) -> torch.Tensor:
 
 
 def node_nll(logits: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
-    """Mean cross-entropy over the nodes of ``batch.node_mask``."""
+    """Mean cross-entropy over the nodes of ``batch.node_mask``.  A label
+    outside [-C, C) of a node in the mask makes the loss NaN, as in the
+    reference (``label_logits``); a node outside the mask adds 0 even then,
+    as the reference's product with the bool mask does."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    true = torch.gather(logits, -1, batch.labels.to(torch.int64)[:, None])[..., 0]
-    mask = batch.node_mask.to(torch.float32)
-    nll = (lse - true) * mask
-    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1)
+    true = label_logits(logits, batch.labels)
+    nll = torch.where(batch.node_mask, lse - true, 0.0)
+    return torch.sum(nll) / torch.clamp(torch.sum(batch.node_mask.to(torch.float32)), min=1)
 
 
 def loss_fn(params: Dict, batch: GraphBatch, cfg: GCNConfig) -> torch.Tensor:

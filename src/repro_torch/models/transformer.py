@@ -41,7 +41,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.nn.attention import attention
-from repro_torch.nn.layers import linear, mlp, rmsnorm, rope, softcap
+from repro_torch.nn.layers import label_logits, linear, mlp, rmsnorm, rope, softcap
 
 __all__ = ["TransformerConfig", "Transformer", "init_params", "params_from_reference",
            "forward", "loss_fn", "prefill", "decode_step", "init_cache"]
@@ -361,7 +361,8 @@ def loss_fn(params: Dict, tokens: torch.Tensor, labels: torch.Tensor,
             cfg: TransformerConfig) -> torch.Tensor:
     """Chunked LM loss: the (B, S, V) logits are never materialized; the
     head and softmax run per sequence chunk.  As the reference, the tail
-    past the last whole chunk is left out."""
+    past the last whole chunk is left out, and a label outside [-V, V)
+    makes the loss NaN (``label_logits``)."""
     h, aux = forward(params, tokens, cfg)
     b, s, _ = h.shape
     chunk = min(cfg.loss_chunk, s)
@@ -372,7 +373,7 @@ def loss_fn(params: Dict, tokens: torch.Tensor, labels: torch.Tensor,
         lb = labels[:, c * chunk:(c + 1) * chunk].to(torch.int64)
         lg = _logits(params, hb, cfg).to(torch.float32)
         lse = torch.logsumexp(lg, dim=-1)
-        true = torch.gather(lg, -1, lb[..., None])[..., 0]
+        true = label_logits(lg, lb)
         tot = tot + torch.sum(lse - true)
     loss = tot / (b * n_chunks * chunk)
     return loss + 0.01 * aux

@@ -26,6 +26,7 @@ __all__ = [
     "mlp",
     "rope",
     "softcap",
+    "label_logits",
 ]
 
 
@@ -142,3 +143,16 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return x
     return (cap * torch.tanh(x.to(torch.float32) / cap)).to(x.dtype)
+
+
+def label_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., label]`` for each label, as the reference's
+    ``take_along_axis`` reads it (fill mode): a label in [-C, -1] wraps, any
+    other label outside [0, C) gives NaN, so its loss is NaN.  No label is
+    ignored (torch's ``ignore_index`` has no counterpart there)."""
+    c = logits.shape[-1]
+    lb = labels.to(torch.int64)
+    lb = torch.where(lb < 0, lb + c, lb)
+    ok = (lb >= 0) & (lb < c)
+    true = torch.gather(logits, -1, torch.where(ok, lb, 0)[..., None])[..., 0]
+    return true.masked_fill(~ok, float("nan"))

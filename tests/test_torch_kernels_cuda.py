@@ -4,7 +4,10 @@ PyTorch versions on the card, with their launch counts: bitwise, or for
 B5's float sums within a bound on reordered summation (and bitwise run to
 run), or for B6 within the reference's attention tolerances (2e-5 in f32,
 2e-2 in bf16; f32 scores at the softcap's scale are held to the plain
-version in float64); and the routing that sends the card's GCN (B5), attention
+version in float64), each B6 case on the kernel ``kernel.variant`` names
+(wgmma/TMA, mma.sync or SIMT) and counted under its name; B5 on src ids
+outside [0, N), which read the reference's rows; DLRM's retrieval ties in
+index order; and the routing that sends the card's GCN (B5), attention
 (B6) and transformer through them.  Needs an NVIDIA
 card (marker ``cuda``; skips without one).  Imports neither JAX nor the
 reference package, so it runs where only the port is installed:
@@ -204,6 +207,22 @@ def test_seg_mm_on_card_sums_in_the_cpu_plain_versions_order(cuda, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bad", [500, 505, -502, -1])
+def test_seg_mm_out_of_range_src_reads_the_reference_rows(cuda, bad):
+    """src ids outside [0, N) read what the reference's gather reads (wrap
+    in [-N, -1], else clamp), as the plain version does: the card never
+    reads outside x, and the sums equal the CPU plain version's bits."""
+    x, src, dst, w = _seg_mm_inputs(16, 500, 4000, "cpu")
+    src[::97] = bad
+    for weight in (None, w):
+        want = sm_ref.seg_mm_ref(x, src, dst, 500, edge_weight=weight)
+        got = sm_ops.seg_mm(x.to(cuda), src.to(cuda), dst.to(cuda), 500,
+                            edge_weight=None if weight is None else weight.to(cuda))
+        torch.cuda.synchronize()
+        assert got.cpu().equal(want)
+
+
+@pytest.mark.cuda
 def test_seg_mm_layout_cache_on_card(cuda):
     x, src, dst, w = _seg_mm_inputs(16, 333, 1000, cuda)
     builds = sm_ops.LAYOUTS.builds
@@ -310,6 +329,26 @@ def test_embedding_bag_raises_on_the_card_instead_of_falling_back(cuda):
 
 
 @pytest.mark.cuda
+def test_retrieval_scores_on_card_order_ties_by_index(cuda):
+    """300 all-zero candidates tie everywhere: the top 10 are ids 0..9, as
+    ``lax.top_k`` orders ties, on the card as on the CPU."""
+    from repro_torch.configs import dlrm_rm2
+    from repro_torch.models import dlrm
+
+    cfg = dlrm_rm2.smoke_config()
+    params = dlrm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    dense = torch.from_numpy(rng.standard_normal((1, cfg.n_dense)).astype(np.float32))
+    sparse = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (1, cfg.n_sparse, 1)).astype(np.int32))
+    on_card = chip_smoke.moved(params, cuda)
+    cands = torch.zeros((300, cfg.embed_dim))
+    vals, ids = dlrm.retrieval_scores(on_card, dense.to(cuda), sparse.to(cuda), cands.to(cuda),
+                                      cfg, top_k=10)
+    assert ids.cpu().tolist() == list(range(10)) and not vals.any()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mh", [1, 3])
 def test_dlrm_forward_on_card_matches_cpu(cuda, mh):
     """RM2's widths with small tables: B4 once per forward on the card,
@@ -412,6 +451,58 @@ B6_CAP_CASES = [
     (1, 128, 128, 4, 1, 32, dict(causal=False, cap=50.0)),
 ]
 B6_CAP_SCALES = [(torch.float32, 3.0), (torch.bfloat16, 3.0), (torch.bfloat16, 5.0)]
+
+
+# (b, sq, skv, hq, hkv, d, kwargs) for the wgmma/TMA kernel: interior and edge
+# tiles, window and none, causal off, G = 1, 2, 4 and odd, D = 8..256, Sq and Skv
+# not multiples of 64, q_offset, rows without a valid key
+B6_SM90_CASES = [
+    (1, 8192, 8192, 16, 8, 256, dict(causal=True, window=4096, cap=50.0)),
+    (1, 1000, 1000, 16, 8, 256, dict(causal=True, cap=50.0)),
+    (1, 300, 300, 4, 4, 256, dict(causal=True, window=100)),
+    (2, 200, 333, 8, 2, 128, dict(causal=False, cap=30.0)),
+    (1, 130, 250, 6, 3, 64, dict(causal=True, window=70, q_offset=120)),
+    (2, 65, 300, 18, 2, 128, dict(causal=True, window=40, q_offset=200)),
+    (1, 100, 130, 4, 4, 8, dict(causal=True)),
+    (1, 200, 200, 4, 2, 192, dict(causal=True, window=100)),
+    (3, 77, 91, 6, 3, 40, dict(causal=True, q_offset=-20)),
+    (1, 128, 256, 16, 8, 256, dict(causal=True, window=64, q_offset=400)),  # no valid key
+    (1, 100, 64, 2, 1, 16, dict(causal=True, window=8, q_offset=30)),  # some rows without
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,kw", B6_SM90_CASES)
+def test_flash_attention_sm90_kernel_matches_plain_version(cuda, b, sq, skv, hq, hkv, d, kw):
+    q, k, v = _attn_inputs(b, sq, skv, hq, hkv, d, torch.bfloat16, cuda,
+                           3.0 if kw.get("cap") else 0.3)
+    fa_ops.reset_launches()
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    assert fa_ops.launches[fa_ops.COUNTERS["sm90"]] == fa_ops.launches[fa_ops.FLASH_ATTENTION] == 1
+    want = fa_ref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **B6_TOL[torch.bfloat16])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernels_by_input(cuda):
+    """Strided views TMA takes run the sm90 kernel; a misaligned H stride
+    the mma.sync kernel; f32 the SIMT kernel; each counted under its name."""
+    packed, _, _ = _attn_inputs(1, 300, 300, 8, 8, 128, torch.bfloat16, cuda)
+    odd = torch.zeros((1, 300, 4, 132), dtype=torch.bfloat16, device=cuda)[..., :128]
+    odd.copy_(packed[:, :, :4])
+    kw = dict(causal=True, window=100, cap=50.0)
+    fa_ops.reset_launches()
+    for (q, k, v), name in [((packed[:, :, :4], packed[:, :, 4:6], packed[:, :, 6:]), "sm90"),
+                            ((odd, packed[:, :, 4:6], packed[:, :, 6:]), "mma"),
+                            ((packed[:, :, :4].float(), packed[:, :, 4:6].float(),
+                              packed[:, :, 6:].float()), "simt")]:
+        before = fa_ops.launches[fa_ops.COUNTERS[name]]
+        got = fa_ops.flash_attention(q, k, v, **kw)
+        assert fa_ops.launches[fa_ops.COUNTERS[name]] == before + 1
+        want = fa_ref.flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+        torch.testing.assert_close(got.float(), want.float(), **B6_TOL[q.dtype])
+    assert fa_ops.launches[fa_ops.FLASH_ATTENTION] == 3
 
 
 @pytest.mark.cuda
