@@ -9,9 +9,11 @@ none of whose failures is caught:
 1. print the card's name and power limit; build the CUDA kernels from
    ``src/repro_torch/kernels/*/csrc``, one ``nvcc`` per source, together;
 2. hold every kernel against its plain PyTorch version on the card over
-   ragged shapes: bitwise, or for seg_mm's float sums within a bound on
-   reordered summation, and bitwise run to run, or for flash_attention
-   within the reference's tolerances, each case on the kernel
+   ragged shapes (B1 and B2 also with few rows selected, B3 on calls that
+   mix one-edge windows, hubs and fully filtered windows): bitwise, or for
+   seg_mm's float sums within a bound on reordered summation, and bitwise
+   run to run, or for flash_attention within the reference's tolerances,
+   each case on the kernel
    ``kernel.variant`` names (the wgmma/TMA kernel, the mma.sync kernel for
    other bf16 inputs, the SIMT kernel for f32);
 3. the main path at the paper's Tab. I ``graph3`` scale (10M edges drawn
@@ -65,8 +67,12 @@ none of whose failures is caught:
 4. the byte layout (``byte_masks()``): build it and answer a fused pattern,
    which runs the byte kernel; its masks must equal the packed graph's;
 5. time each kernel at the main path's shapes beside its plain version,
-   its bound and (where one exists) a PyTorch call computing the same;
-   flash_attention also beside the mma.sync kernel it replaced on the path.
+   its bound and (where one exists) a PyTorch call computing the same:
+   ``ms`` brackets calls of the wrapper with events, ``device_ms`` is the
+   kernel's own time from the profiler (``ms`` also holds the host's time
+   when a launch is shorter than the host's call); B1 also with every row
+   selected; flash_attention also beside the mma.sync kernel it replaced
+   on the path.
 
 Kernel launch counts are zeroed right before each path and read right
 after it; a kernel of the path that did not launch fails the run.  The
@@ -226,23 +232,32 @@ def time_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def on_card(fn):
+def on_card(fn, sessions: int = 3):
     """``fn()`` once under ``torch.profiler``: the events that ran on the
     card (kernels and copies), most time first, and the window's wall
     seconds.  Only device-side events are kept: a host op's device time
-    repeats its kernels'."""
+    repeats its kernels'.  The profiler on the card's host now and then
+    returns a session without any device event; such a session is reported
+    on stderr and ``fn`` runs again under a new one, up to ``sessions`` in
+    all.  The first session that recorded device events is the one
+    returned, and the caller's checks judge it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for session in range(1, sessions + 1):
         torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.self_device_time_total, reverse=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.self_device_time_total, reverse=True)
+        if events:
+            break
+        print(f"on_card: profiler session {session} of {sessions} recorded no device event",
+              file=sys.stderr, flush=True)
     return events, wall_s
 
 
@@ -256,9 +271,14 @@ def kernel_device_ms(fn, name: str, reps: int = 20) -> dict:
     events, _ = on_card(lambda: [fn() for _ in range(reps)])
     hits = [e for e in events if name in e.key]
     recorded = sum(e.count for e in hits)
-    check(recorded > 0, f"the profiler recorded launches of {name}")
+    check(recorded > 0, f"the profiler recorded launches of {name} "
+                        f"(the session recorded {len(events)} device events)")
     return {"ms": sum(e.self_device_time_total for e in hits) / 1e3 / recorded,
             "recorded": recorded, "calls": reps}
+
+
+B1_KERNEL, B2_KERNEL = "bitmap_query_packed_kernel", "bitmap_query_byte_kernel"
+B3_KERNEL = "window_select_kernel"
 
 
 def max_abs_err(a, b) -> float:
@@ -282,6 +302,71 @@ def device_profile(pg, reqs) -> dict:
 
 
 # ------------------------------------------------------------------ phases
+# B1/B2 with few rows selected (the main path selects 1-3 of 50): (how, Q, K)
+SPARSE_SELECT_CASES = [("one", 1, 50), ("one", 2, 50), ("none", 2, 50), ("second_tile", 3, 300),
+                       ("per_group", 9, 50), ("per_group", 64, 300)]
+
+
+def sparse_selects(how: str, q: int, k: int, gen):
+    """(Q, K) bool selects of a few rows: ``one`` row for every query,
+    ``none`` at all, rows only in the ``second_tile`` of 256 attribute rows,
+    or ``per_group``: each group of 8 queries its own 3 rows, every query a
+    random subset of them (some empty)."""
+    import torch
+
+    masks = torch.zeros((q, k), dtype=torch.bool)
+    if how == "one":
+        masks[:, int(torch.randint(0, k, (1,), generator=gen))] = True
+    elif how == "second_tile":
+        rows = 256 + torch.randperm(k - 256, generator=gen)[:3]
+        masks[:, rows] = torch.rand((q, 3), generator=gen) < 0.7
+        masks[0, rows[0]] = True
+    elif how == "per_group":
+        for g in range(0, q, 8):
+            rows = torch.randperm(k, generator=gen)[:3]
+            masks[g:g + 8, rows] = torch.rand((min(8, q - g), 3), generator=gen) < 0.5
+    elif how != "none":
+        raise ValueError(how)
+    return masks
+
+
+def mixed_windows(r: int, s: int, w: int, gen, ties: bool = False):
+    """B3 inputs that mix window sizes in one call: Poisson(1) degrees, a
+    few mid-size windows (9-32 lanes) and hubs (40-1,000 lanes, and one of
+    W + 5, cut to the window), windows
+    that start within a few edges of m, windows whose edge words are all
+    zero (fully filtered), zero degrees; with ``ties`` priorities of three
+    values.  Returns start, deg (R, S), dst (m,), words (R, W_m), pri
+    (R, S, W) on the CPU."""
+    import torch
+
+    shape = (r, s)
+    deg = torch.poisson(torch.ones(shape), generator=gen).to(torch.int32)
+    pick = torch.rand(shape, generator=gen)
+    mid = torch.randint(9, 33, shape, generator=gen, dtype=torch.int32)
+    hub = torch.randint(40, 1001, shape, generator=gen, dtype=torch.int32)
+    deg = torch.where(pick < 0.05, mid, torch.where(pick < 0.08, hub, deg))
+    deg.view(-1)[0] = w + 5  # a hub cut to the window in every call
+    deg[torch.rand(shape, generator=gen) < 0.05] = 0
+    m = 2 * int(deg.sum()) + 4096 + 13
+    start = (torch.rand(shape, generator=gen) * (m - 64)).to(torch.int32) + 64
+    near_end = torch.rand(shape, generator=gen) < 0.05
+    start = torch.where(near_end, m - torch.randint(1, 40, shape, generator=gen,
+                                                    dtype=torch.int32), start)
+    filtered = torch.rand(shape, generator=gen) < 0.05  # windows inside the zeroed words
+    start = torch.where(filtered, torch.randint(0, 64, shape, generator=gen, dtype=torch.int32),
+                        start)
+    deg = torch.where(filtered, deg.clamp(max=2048 - 64), deg)
+    dst = torch.randint(0, m, (m,), dtype=torch.int32, generator=gen)
+    words = torch.randint(-2**31, 2**31, (r, -(-m // 32)), dtype=torch.int64,
+                          generator=gen).to(torch.int32)
+    words[:, :2048 // 32] = 0
+    pri = torch.rand((r, s, w), generator=gen)
+    if ties:
+        pri = torch.floor(pri * 3) / 3
+    return start, deg, dst, words, pri
+
+
 def kernel_checks(device) -> dict:
     """Every kernel against its plain version, bitwise, on ragged shapes
     (B5 and B6 within their tolerances); returns the shares of the
@@ -308,6 +393,18 @@ def kernel_checks(device) -> dict:
     mask = torch.rand(50) < 0.5
     check(ops.bitmap_query_packed(plane, mask.to(device)).equal(
         ref.bitmap_query_packed_ref(plane, mask.to(device))), "B1 single query")
+    for how, q, k in SPARSE_SELECT_CASES:
+        for cols in (1, 31, 4099, 100_003):
+            masks = sparse_selects(how, q, k, gen).to(device)
+            plane = torch.randint(-2**31, 2**31, (k, cols), dtype=torch.int64,
+                                  generator=gen).to(torch.int32).to(device)
+            check(ops.bitmap_query_batched_packed(plane, masks).equal(
+                ref.bitmap_query_batched_packed_ref(plane, masks)),
+                f"B1 {how} selects Q={q} K={k} W={cols}")
+            bitmap = (torch.rand((k, cols), generator=gen) < 0.05).to(torch.int8).to(device)
+            check(ops.bitmap_query_batched(bitmap, masks).equal(
+                ref.bitmap_query_batched_ref(bitmap, masks)),
+                f"B2 {how} selects Q={q} K={k} N={cols}")
     window_select_checks(device)
     embedding_bag_checks(device)
     seg_mm_checks(device)
@@ -319,7 +416,9 @@ def kernel_checks(device) -> dict:
 def window_select_checks(device) -> None:
     """B3 against its plain version, bitwise: ragged windows (degrees past
     W, zero degrees, a ragged last edge word), no / shared / per-request
-    edge words, and every other case with priorities forced to tie."""
+    edge words, and every other case with priorities forced to tie; then
+    calls that mix small windows, mid-size ones and hubs
+    (``mixed_windows``), with and without ties."""
     import torch
 
     from repro_torch.kernels.neighbor_sample import ops, ref
@@ -355,6 +454,22 @@ def window_select_checks(device) -> None:
                               f"words={None if ew is None else tuple(ew.shape)} ties={case % 2}")
                 case += 1
                 del args, start, deg, dst, pri, words
+    for r in (1, 8):
+        for s in (1, 300, 65_536):
+            for w in (16, 1024, 2048):  # 2048: hubs past the 1,024 lanes held in registers
+                if r * s * w > 2**28:  # as above
+                    continue
+                for ties in (False, True):
+                    args = [t.to(device) for t in mixed_windows(r, s, w, gen, ties)]
+                    start, deg, dst, words, pri = args
+                    for fanout in (f for f in (1, 10, 15, 16, 17) if f <= w):
+                        for ew in (None, words[0].contiguous(), words):
+                            got = ops.window_select(start, deg, dst, ew, pri, fanout=fanout)
+                            want = ref.window_select_ref(start, deg, dst, ew, pri, fanout=fanout)
+                            check(all(a.equal(b) for a, b in zip(got, want)),
+                                  f"B3 mixed windows R={r} S={s} W={w} fanout={fanout} "
+                                  f"words={None if ew is None else tuple(ew.shape)} ties={ties}")
+                    del args, start, deg, dst, pri, words
 
 
 def same_bits(got, want) -> bool:
@@ -845,7 +960,8 @@ def forward_kernels(forward, what: str, kernel: str, banned: str) -> dict:
 
     events, _ = on_card(run)
     names = sorted(e.key for e in events)
-    check(any(kernel in k for k in names), f"the {what} ran {kernel}")
+    check(any(kernel in k for k in names),
+          f"the {what} ran {kernel} (the session recorded {len(names)} device events)")
     found = [k for k in names if re.search(banned, k, re.I)]
     check(not found, f"the {what} ran no kernel matching {banned}: {found}")
     return {"device_ms": sum(e.self_device_time_total for e in events) / 1e3,
@@ -1589,6 +1705,8 @@ def flash_attention_entry(name: str, call, launches: int) -> dict:
              "replaces": "src/repro/kernels/flash_attention/kernel.py:73", "kernel": which,
              "launches": launches, "max_abs_err": err,
              "ms": time_ms(lambda: ops.flash_attention(q, k, v, **kw), 10),
+             "device_ms": kernel_device_ms(lambda: ops.flash_attention(q, k, v, **kw),
+                                           f"flash_attention_{which}_kernel", 10)["ms"],
              "ms_mma_sync_kernel": time_ms(mma_sync, 10), "mma_sync_kernel_max_abs_err": err_mma,
              "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 2),
              "bound_ms": max(flops / rate, moved_bytes / HBM_BYTES_PER_S) * 1e3,
@@ -1604,7 +1722,6 @@ def flash_attention_entry(name: str, call, launches: int) -> dict:
                        "pairs": pairs, "flop": flops}}
     entry["tflop_per_s"] = flops / entry["ms"] / 1e9
     entry["tflop_per_s_mma_sync_kernel"] = flops / entry["ms_mma_sync_kernel"] / 1e9
-    entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
     return entry
 
 
@@ -1615,7 +1732,7 @@ def embedding_bag_entry(name: str, tables, idxs, launches: int) -> dict:
     counts what a batch needs: each distinct (field, row) it names read
     once, its indices, its output written once (mean over ``idxs``).
     The yardstick is ``F.embedding_bag`` over the flattened table stack.
-    ``device`` beside ``ms``: the kernel's own time per launch, which at
+    ``device_ms`` beside ``ms``: the kernel's own time per launch, which at
     serve_p99 is shorter than the host's time to launch it."""
     import itertools
 
@@ -1651,10 +1768,57 @@ def embedding_bag_entry(name: str, tables, idxs, launches: int) -> dict:
             "bound_ms": needed / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": time_ms(cycling(lambda i: torch.nn.functional.embedding_bag(
                 flat[i], table_rows, mode="mean")), reps),
-            "device": kernel_device_ms(kernel_call, "embedding_bag_kernel"),
+            "device_ms": kernel_device_ms(kernel_call, "embedding_bag_kernel")["ms"],
             "library_max_abs_err": float((lib.float() - want.float()).abs().max()),
             "shape": {"B": b, "F": f, "MH": mh, "V": v, "D": d, "batches_cycled": len(idxs),
                       "distinct_rows": torch.unique(flat[0]).numel()}}
+
+
+def selected_rows_bytes(table, masks) -> int:
+    """Bytes a bitmap query must move: the rows that some query selects
+    (each read once), the masks, and the output written once."""
+    q, k = masks.shape
+    rows = int(masks.any(dim=0).sum())
+    row_bytes = table.shape[1] * table.element_size()  # the output's rows are as wide
+    return rows * row_bytes + q * k + q * row_bytes
+
+
+def bitmap_query_entry(name: str, table, masks, launches: int) -> dict:
+    """Phase 5's B1 (int32 ``table``, the packed plane) or B2 (int8, the
+    byte plane) line at the fused 1-hop request's masks.  ``bound_ms``
+    counts the rows the masks select (``selected_rows_bytes``);
+    ``bound_all_rows_ms`` the whole plane, the first design's bound.  B1 is
+    also timed with every row selected (``*_all_rows``: the dense case, and
+    ``bitplane.or_reduce``'s)."""
+    import torch
+
+    from repro_torch.kernels.bitmap_query import ops, ref
+
+    packed = table.dtype == torch.int32
+    call, plain, kname = ((ops.bitmap_query_batched_packed, ref.bitmap_query_batched_packed_ref,
+                           B1_KERNEL) if packed else
+                          (ops.bitmap_query_batched, ref.bitmap_query_batched_ref, B2_KERNEL))
+    q, k = masks.shape
+    full = torch.ones_like(masks)
+    entry = {"name": name, "route": "cuda", "source": SOURCES["bitmap_query"],
+             "replaces": "src/repro/kernels/bitmap_query/kernel.py:" + ("118" if packed else "72"),
+             "launches": launches,
+             "max_abs_err": max_abs_err(call(table, masks), plain(table, masks)),
+             "ms": time_ms(lambda: call(table, masks)),
+             "device_ms": kernel_device_ms(lambda: call(table, masks), kname)["ms"],
+             "plain_ms": time_ms(lambda: plain(table, masks), 10),
+             "bound_ms": selected_rows_bytes(table, masks) / HBM_BYTES_PER_S * 1e3,
+             "bound_by": "bytes",
+             "library_ms": None if packed else time_ms(
+                 lambda: (masks.half() @ table.half()) > 0.5, 10),
+             "bound_all_rows_ms": selected_rows_bytes(table, full) / HBM_BYTES_PER_S * 1e3,
+             "shape": {"Q": q, "K": k, "W" if packed else "N": table.shape[1],
+                       "rows_selected": int(masks.any(dim=0).sum())}}
+    if packed:
+        check(call(table, full).equal(plain(table, full)), f"{name} exact with every row selected")
+        entry["ms_all_rows"] = time_ms(lambda: call(table, full))
+        entry["device_ms_all_rows"] = kernel_device_ms(lambda: call(table, full), kname)["ms"]
+    return entry
 
 
 def window_select_entry(b3_inputs, launches: int) -> dict:
@@ -1684,18 +1848,24 @@ def window_select_entry(b3_inputs, launches: int) -> dict:
     out_bytes = t * fanout * 9
     needed = 8 * t + 4 * int(lanes.sum()) + words_bytes + 4 * int(got[2].sum()) + out_bytes
     dense = 8 * t + 4 * t * w + words_bytes + 4 * int(got[2].sum()) + out_bytes
-    return {"name": "window_select (B3)", "route": "cuda", "source": SOURCES["neighbor_sample"],
-            "replaces": "src/repro/kernels/neighbor_sample/kernel.py:81",
-            "launches": launches,
-            "max_abs_err": max(max_abs_err(a, b) for a, b in zip(got, want)),
-            "ms": time_ms(lambda: ops.window_select(start, deg, dst, ew, pri, fanout=fanout)),
-            "plain_ms": time_ms(lambda: ref.window_select_ref(start, deg, dst, ew, pri,
-                                                              fanout=fanout), 10),
-            "bound_ms": needed / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": None,
-            "bound_all_lanes_ms": dense / HBM_BYTES_PER_S * 1e3,
-            "shape": {"S": t, "W": w, "fanout": fanout, "m": dst.numel(),
-                      "window_lanes": int(lanes.sum()), "edge_words": ew is not None}}
+
+    def call():
+        return ops.window_select(start, deg, dst, ew, pri, fanout=fanout)
+
+    entry = {"name": "window_select (B3)", "route": "cuda", "source": SOURCES["neighbor_sample"],
+             "replaces": "src/repro/kernels/neighbor_sample/kernel.py:81",
+             "launches": launches,
+             "max_abs_err": max(max_abs_err(a, b) for a, b in zip(got, want)),
+             "ms": time_ms(call),
+             "device_ms": kernel_device_ms(call, B3_KERNEL)["ms"],
+             "plain_ms": time_ms(lambda: ref.window_select_ref(start, deg, dst, ew, pri,
+                                                               fanout=fanout), 10),
+             "bound_ms": needed / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+             "library_ms": None,
+             "bound_all_lanes_ms": dense / HBM_BYTES_PER_S * 1e3,
+             "shape": {"S": t, "W": w, "fanout": fanout, "m": dst.numel(),
+                       "window_lanes": int(lanes.sum()), "edge_words": ew is not None}}
+    return entry
 
 
 def seg_mm_entry(name: str, call, launches: int) -> dict:
@@ -1730,6 +1900,8 @@ def seg_mm_entry(name: str, call, launches: int) -> dict:
             "launches": launches,
             "max_abs_err": float((got - want).abs().max()) if got.numel() else 0.0,
             "ms": time_ms(lambda: ops.seg_mm(x, src, dst, n, edge_weight=w)),
+            "device_ms": kernel_device_ms(lambda: ops.seg_mm(x, src, dst, n, edge_weight=w),
+                                          "seg_mm_kernel")["ms"],
             "plain_ms": time_ms(lambda: ref.seg_mm_ref(x, src, dst, n, edge_weight=w), 10),
             "bound_ms": needed / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": time_ms(lambda: torch.sparse.mm(csr, x), 10),
@@ -1893,29 +2065,10 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
         masks = masks.to(device)
         plane = pg._vstore.finalize().bitmap
         bitmap = pgb._vstore.finalize().bitmap
-        k, w = plane.shape
-        n = bitmap.shape[1]
-        got = ops.bitmap_query_batched_packed(plane, masks)
-        b1 = {"name": "bitmap_query_packed (B1)", "route": "cuda", "source": SOURCES["bitmap_query"],
-              "replaces": "src/repro/kernels/bitmap_query/kernel.py:118",
-              "launches": main_launches[ops.PACKED],
-              "max_abs_err": max_abs_err(got, ref.bitmap_query_batched_packed_ref(plane, masks)),
-              "ms": time_ms(lambda: ops.bitmap_query_batched_packed(plane, masks)),
-              "plain_ms": time_ms(lambda: ref.bitmap_query_batched_packed_ref(plane, masks), 10),
-              "bound_ms": (k * w * 4 + plan_q * k + plan_q * w * 4) / HBM_BYTES_PER_S * 1e3,
-              "bound_by": "bytes", "library_ms": None,
-              "shape": {"Q": plan_q, "K": k, "W": w}}
-        got = ops.bitmap_query_batched(bitmap, masks)
-        b2 = {"name": "bitmap_query_byte (B2)", "route": "cuda", "source": SOURCES["bitmap_query"],
-              "replaces": "src/repro/kernels/bitmap_query/kernel.py:72",
-              "launches": byte_launches[ops.BYTE],
-              "max_abs_err": max_abs_err(got, ref.bitmap_query_batched_ref(bitmap, masks)),
-              "ms": time_ms(lambda: ops.bitmap_query_batched(bitmap, masks)),
-              "plain_ms": time_ms(lambda: ref.bitmap_query_batched_ref(bitmap, masks), 10),
-              "bound_ms": (k * n + plan_q * k + plan_q * n) / HBM_BYTES_PER_S * 1e3,
-              "bound_by": "bytes",
-              "library_ms": time_ms(lambda: (masks.half() @ bitmap.half()) > 0.5, 10),
-              "shape": {"Q": plan_q, "K": k, "N": n}}
+        b1 = bitmap_query_entry("bitmap_query_packed (B1)", plane, masks,
+                                main_launches[ops.PACKED])
+        b2 = bitmap_query_entry("bitmap_query_byte (B2)", bitmap, masks,
+                                byte_launches[ops.BYTE])
         check(b1["max_abs_err"] == 0 and b2["max_abs_err"] == 0, "timed kernels exact")
         # the edge plane, at the Q of a lone mask and of a fused edge batch
         eplane = pg._estore.finalize().bitmap
@@ -1923,9 +2076,10 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
             em = masks[:q].contiguous()
             out[f"b1_edge_plane_q{q}_ms"] = time_ms(
                 lambda: ops.bitmap_query_batched_packed(eplane, em))
-            out[f"b1_edge_plane_q{q}_bound_ms"] = (
-                eplane.shape[0] * eplane.shape[1] * 4 + q * eplane.shape[0]
-                + q * eplane.shape[1] * 4) / HBM_BYTES_PER_S * 1e3
+            out[f"b1_edge_plane_q{q}_device_ms"] = kernel_device_ms(
+                lambda: ops.bitmap_query_batched_packed(eplane, em), B1_KERNEL)["ms"]
+            out[f"b1_edge_plane_q{q}_bound_ms"] = selected_rows_bytes(
+                eplane, em) / HBM_BYTES_PER_S * 1e3
         b3 = window_select_entry(sampled["b3_inputs"],
                                  sum(v["b3_launches"] for v in out["sample"].values()))
         check(b3["max_abs_err"] == 0, "timed B3 exact")
@@ -1945,6 +2099,8 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
               for kind, call in zip(("local", "global"), b6_calls)]
         check(all(e["kernel"] == "sm90" for e in b6), "prefill_8k's layers ran the wgmma/TMA kernel")
         out["kernels"] = [b1, b2, b3, *b4, *b5, *b6]
+        for entry in out["kernels"]:  # on the kernel's own time
+            entry["share_of_bound"] = entry["bound_ms"] / entry["device_ms"]
         out["peak_mem_gib"] = max(torch.cuda.max_memory_allocated() / 2**30,
                                   out["gnn"]["peak_mem_gib"], out["gnn"]["peak_mem_gib_before"],
                                   out["recsys"]["peak_mem_gib"], out["lm"]["peak_mem_gib"])

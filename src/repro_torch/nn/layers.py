@@ -15,6 +15,8 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.core.device import resolve_device
+
 __all__ = [
     "init_linear",
     "linear",
@@ -53,7 +55,9 @@ def linear(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
 
 def init_rmsnorm(d: int, dtype: torch.dtype = torch.float32,
                  device=None) -> Dict[str, torch.Tensor]:
-    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    """{"scale": ones} on ``device`` (``None``: the card, as everywhere in
+    the port; raises without one)."""
+    return {"scale": torch.ones((d,), dtype=dtype, device=resolve_device(device))}
 
 
 def rmsnorm(p: Dict[str, torch.Tensor], x: torch.Tensor, *, eps: float = 1e-6,
@@ -68,6 +72,9 @@ def rmsnorm(p: Dict[str, torch.Tensor], x: torch.Tensor, *, eps: float = 1e-6,
 
 def init_layernorm(d: int, dtype: torch.dtype = torch.float32,
                    device=None) -> Dict[str, torch.Tensor]:
+    """{"scale": ones, "bias": zeros} on ``device`` (``None``: the card;
+    raises without one)."""
+    device = resolve_device(device)
     return {"scale": torch.ones((d,), dtype=dtype, device=device),
             "bias": torch.zeros((d,), dtype=dtype, device=device)}
 

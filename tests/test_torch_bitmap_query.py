@@ -54,6 +54,43 @@ def test_packed_plain_matches_reference_and_pallas(q, k, n):
         jnp.asarray(words), jnp.asarray(masks[0]))))
 
 
+def _sparse_selects(how, q, k, rng):
+    """(Q, K) selects of a few rows, as on the main path (1-3 of 50):
+    ``one`` row for all, ``none``, rows only past the first 256, or
+    ``per_group``: each group of 8 queries its own 3 rows (some queries
+    none)."""
+    masks = np.zeros((q, k), bool)
+    if how == "one":
+        masks[:, rng.integers(0, k)] = True
+    elif how == "second_tile":
+        rows = 256 + rng.permutation(k - 256)[:3]
+        masks[:, rows] = rng.random((q, 3)) < 0.7
+        masks[0, rows[0]] = True
+    elif how == "per_group":
+        for g in range(0, q, 8):
+            masks[g:g + 8, rng.permutation(k)[:3]] = rng.random((min(8, q - g), 3)) < 0.5
+    return masks
+
+
+@pytest.mark.parametrize("cols", [1, 31, 1000])
+@pytest.mark.parametrize("how,q,k", [("one", 1, 50), ("one", 2, 50), ("none", 2, 50),
+                                     ("second_tile", 3, 300), ("per_group", 9, 50),
+                                     ("per_group", 64, 300)])
+def test_plain_versions_match_reference_on_sparse_selects(how, q, k, cols):
+    rng = np.random.default_rng(q * 31 + k + cols)
+    masks = _sparse_selects(how, q, k, rng)
+    words = rng.integers(0, 2**32, (k, cols), dtype=np.uint32)
+    bitmap = (rng.random((k, cols)) < 0.1).astype(np.int8)
+    got = as_np(ops.bitmap_query_batched_packed(torch.from_numpy(words.view(np.int32)),
+                                                torch.from_numpy(masks)), words=True)
+    np.testing.assert_array_equal(got, as_np(rref.bitmap_query_batched_packed_ref(
+        jnp.asarray(words), jnp.asarray(masks))))
+    assert (got[~masks.any(1)] == 0).all()  # a query selecting nothing gives zeros
+    got = as_np(ops.bitmap_query_batched(torch.from_numpy(bitmap), torch.from_numpy(masks)))
+    np.testing.assert_array_equal(got, as_np(rref.bitmap_query_batched_ref(
+        jnp.asarray(bitmap), jnp.asarray(masks))))
+
+
 def test_cpu_route_launches_nothing():
     ops.reset_launches()
     _, words, masks = _inputs(2, 5, 64)

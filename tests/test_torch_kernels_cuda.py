@@ -74,6 +74,27 @@ def test_kernels_match_plain_versions(cuda, q, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cols", [1, 31, 4099, 100_003])
+@pytest.mark.parametrize("how,q,k", chip_smoke.SPARSE_SELECT_CASES)
+def test_kernels_with_few_selected_rows(cuda, how, q, k, cols):
+    """B1 compacts the rows some query of a group selects and reads only
+    those; B2 reads all: both bitwise equal to their plain versions."""
+    gen = torch.Generator().manual_seed(q * 7 + k + cols)
+    masks = chip_smoke.sparse_selects(how, q, k, gen).to(cuda)
+    rng = np.random.default_rng(cols)
+    plane = torch.from_numpy(rng.integers(0, 2**32, (k, cols), dtype=np.uint32)
+                             .view(np.int32)).to(cuda)
+    bitmap = torch.from_numpy((rng.random((k, cols)) < 0.05).astype(np.int8)).to(cuda)
+    ops.reset_launches()
+    assert ops.bitmap_query_batched_packed(plane, masks).equal(
+        ref.bitmap_query_batched_packed_ref(plane, masks))
+    assert ops.bitmap_query_batched(bitmap, masks).equal(
+        ref.bitmap_query_batched_ref(bitmap, masks))
+    assert ops.launches == {ops.PACKED: 1, ops.BYTE: 1}
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_or_reduce_on_card_uses_the_kernel(cuda):
     words = torch.from_numpy(np.random.default_rng(0).integers(
         0, 2**32, (6, 5, 7), dtype=np.uint32).view(np.int32))
@@ -113,6 +134,28 @@ def test_window_select_matches_plain_version(cuda, r, s, w, fanout, ties):
         want = ns_ref.window_select_ref(start, deg, dst, ew, pri, fanout=fanout)
         for g, p in zip(got, want):
             assert g.equal(p)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("w", [16, 1024, 2048])
+@pytest.mark.parametrize("r,s", [(1, 1), (1, 300), (8, 300), (1, 65_536), (8, 4096)])
+def test_window_select_mixed_windows(cuda, r, s, w, ties):
+    """One call mixing Poisson(1) windows (one thread each), mid-size ones
+    and hubs (a warp each: held in registers up to 1,024 lanes, re-read
+    past that), windows cut by m and fully filtered ones."""
+    gen = torch.Generator().manual_seed(r * 100_003 + s + w)
+    start, deg, dst, words, pri = (t.to(cuda) for t in chip_smoke.mixed_windows(r, s, w, gen,
+                                                                                ties))
+    for ew in (None, words[0].contiguous(), words):
+        for fanout in (f for f in (1, 10, 15, 16, 17) if f <= w):  # staged rows up to 16
+            ns_ops.reset_launches()
+            got = ns_ops.window_select(start, deg, dst, ew, pri, fanout=fanout)
+            assert ns_ops.launches[ns_ops.WINDOW_SELECT] == 1
+            want = ns_ref.window_select_ref(start, deg, dst, ew, pri, fanout=fanout)
+            for g, p in zip(got, want):
+                assert g.equal(p)
     torch.cuda.synchronize()
 
 

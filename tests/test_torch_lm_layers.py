@@ -32,7 +32,7 @@ def test_rmsnorm(plus_one):
     want = R.rmsnorm({"scale": jnp.asarray(s)}, jnp.asarray(x), plus_one=plus_one)
     got = P.rmsnorm({"scale": _t(s)}, _t(x), plus_one=plus_one)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    assert P.init_rmsnorm(32)["scale"].equal(torch.ones(32))
+    assert P.init_rmsnorm(32, device="cpu")["scale"].equal(torch.ones(32))
 
 
 def test_rmsnorm_bf16_input_keeps_its_dtype():
@@ -49,8 +49,19 @@ def test_layernorm():
     want = R.layernorm({"scale": jnp.asarray(s), "bias": jnp.asarray(b)}, jnp.asarray(x))
     got = P.layernorm({"scale": _t(s), "bias": _t(b)}, _t(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    init = P.init_layernorm(48)
+    init = P.init_layernorm(48, device="cpu")
     assert init["scale"].equal(torch.ones(48)) and init["bias"].equal(torch.zeros(48))
+
+
+@pytest.mark.parametrize("init", [P.init_rmsnorm, P.init_layernorm])
+def test_norm_inits_default_to_the_card_and_refuse_without_it(monkeypatch, init):
+    """``device=None`` means the card, as at every other entry point of the
+    port (ROADMAP C.15): with no card it raises instead of placing the
+    params on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init(16)
+    assert all(t.device.type == "cpu" for t in init(16, device="cpu").values())
 
 
 @pytest.mark.parametrize("gated", [False, True])

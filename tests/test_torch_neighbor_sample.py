@@ -93,6 +93,69 @@ def test_window_select_ref_takes_start_and_degree(filtered):
     assert not as_np(got[2])[~valid].any()
 
 
+def _mixed_csr(seed: int):
+    """A CSR mixing the window sizes one call of the card's kernel meets:
+    Poisson(1) out-degrees, mid-size windows (9-32 edges), hubs (40-1,000)
+    with the largest as the last vertex (its window ends at m), degree-0
+    vertices, and an edge filter that forbids every edge of some windows."""
+    rng = np.random.default_rng(seed)
+    n = 200
+    deg = rng.poisson(1.0, n)
+    pick = rng.random(n)
+    deg = np.where(pick < 0.08, rng.integers(9, 33, n), deg)
+    deg = np.where(pick > 0.95, rng.integers(40, 1001, n), deg)
+    deg[-1] = 1000
+    seg = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    m = int(seg[-1])
+    dst = rng.integers(0, n, m).astype(np.int32)
+    edge_ok = rng.random(m) < 0.5
+    blocked = rng.choice(n, 20, replace=False)
+    for v in blocked:
+        edge_ok[seg[v]:seg[v + 1]] = False
+    words = np.packbits(np.concatenate([edge_ok, np.zeros(-m % 32, bool)]),
+                        bitorder="little").view("<u4").astype(np.uint32)
+    hubs = np.flatnonzero(deg >= 40)
+    busy = np.intersect1d(blocked, np.flatnonzero(deg > 0))
+    return seg, dst, edge_ok, words, hubs, busy
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("w", [16, 1024])
+@pytest.mark.parametrize("fanout", [1, 10, 15])
+@pytest.mark.parametrize("r", [1, 8])
+def test_window_select_mixed_windows_match_reference(r, fanout, w, ties):
+    """Small windows, hubs and fully filtered windows in one call, R rows
+    of seeds with one edge-word row each: every row equals the reference's
+    ``_window_select`` and the numpy oracle, on the same priorities."""
+    seg, dst, edge_ok, words, hubs, busy = _mixed_csr(r * 1000 + w + fanout)
+    rng = np.random.default_rng(w + fanout)
+    s, n, m = 48, len(seg) - 1, len(dst)
+    seeds = rng.integers(0, n, (r, s)).astype(np.int32)
+    seeds[:, 0], seeds[:, 1], seeds[:, 2] = n - 1, hubs[0], busy[0]
+    valid = rng.random((r, s)) < 0.9
+    u = rng.random((r, s, w)).astype(np.float32)
+    if ties:
+        u = (np.floor(u * 3) / 3).astype(np.float32)
+    row_ok = np.stack([edge_ok if i % 2 == 0 else ~edge_ok for i in range(r)])
+    row_words = np.stack([words if i % 2 == 0 else ~words for i in range(r)])
+    row_words[:, -1] &= np.uint32((1 << (m % 32)) - 1) if m % 32 else np.uint32(0xFFFFFFFF)
+    for ew, oks in ((None, [None] * r), (words, [edge_ok] * r), (row_words, row_ok)):
+        got = ops._window_select(_t(seg), _t(dst), m, n, _t(seeds), _t(valid),
+                                 None if ew is None else _t(ew.view(np.int32)), _t(u), fanout)
+        for i in range(r):
+            row = None if ew is None else (ew if ew.ndim == 1 else ew[i])
+            want = ref_ops._window_select(
+                jnp.asarray(seg), jnp.asarray(dst), m, n, jnp.asarray(seeds[i]),
+                jnp.asarray(valid[i]), None if row is None else jnp.asarray(row),
+                jnp.asarray(u[i]), fanout)
+            for g, ref_out in zip(got, want):
+                np.testing.assert_array_equal(as_np(g)[i], np.asarray(ref_out))
+            keep = valid[i]
+            oracle = np_select(seg, dst, seeds[i][keep], oks[i], u[i][keep], fanout)
+            for g, o in zip(got, oracle):
+                np.testing.assert_array_equal(as_np(g)[i][keep], o)
+
+
 def test_window_select_checks_its_inputs():
     seg, dst, _ok, words, seeds, valid, u = _inputs(0, 8, ties=False)
     start = _t(seg[seeds])
