@@ -9,8 +9,10 @@ none of whose failures is caught:
 1. print the card's name and power limit; build the CUDA kernels from
    ``src/repro_torch/kernels/*/csrc``, one ``nvcc`` per source, together;
 2. hold every kernel against its plain PyTorch version on the card over
-   ragged shapes (B1 and B2 also with few rows selected, B3 on calls that
-   mix one-edge windows, hubs and fully filtered windows): bitwise, or for
+   ragged shapes (B1 and B2 also with few rows selected, B2 also at every
+   N mod 16, with bytes other than 0 and 1 and from an unaligned base, B3
+   on calls that mix one-edge windows, hubs and fully filtered windows, B5
+   also on x from an unaligned base): bitwise, or for
    seg_mm's float sums within a bound on reordered summation, and bitwise
    run to run, or for flash_attention within the reference's tolerances,
    each case on the kernel
@@ -65,14 +67,15 @@ none of whose failures is caught:
    CPU, (d) on that model decode's logits at every position against the
    forward's;
 4. the byte layout (``byte_masks()``): build it and answer a fused pattern,
-   which runs the byte kernel; its masks must equal the packed graph's;
+   which runs the byte kernel; its masks must equal the packed graph's; the
+   same request timed warm (median of 5, ``byte_request_ms``);
 5. time each kernel at the main path's shapes beside its plain version,
    its bound and (where one exists) a PyTorch call computing the same:
    ``ms`` brackets calls of the wrapper with events, ``device_ms`` is the
    kernel's own time from the profiler (``ms`` also holds the host's time
-   when a launch is shorter than the host's call); B1 also with every row
-   selected; flash_attention also beside the mma.sync kernel it replaced
-   on the path.
+   when a launch is shorter than the host's call); B1 and B2 also with
+   every row selected; flash_attention also beside the mma.sync kernel it
+   replaced on the path.
 
 Kernel launch counts are zeroed right before each path and read right
 after it; a kernel of the path that did not launch fails the run.  The
@@ -261,14 +264,26 @@ def on_card(fn, sessions: int = 3):
     return events, wall_s
 
 
-def kernel_device_ms(fn, name: str, reps: int = 20) -> dict:
+L2_FLUSH_BYTES = 256 * 2**20  # five times the H100's 50 MB L2
+
+
+def kernel_device_ms(fn, name: str, reps: int = 20, cold_l2: bool = False) -> dict:
     """The card's own time per launch of the kernels whose name holds
     ``name``, over ``reps`` calls of ``fn`` under ``torch.profiler``: the
     mean over the launches the profiler recorded (``recorded``), without
     the host's time between launches that ``time_ms`` sees when a launch is
-    shorter than the host's call."""
+    shorter than the host's call.  With ``cold_l2`` every call follows a
+    write of ``L2_FLUSH_BYTES`` (its fill kernel is not counted), so the
+    inputs come from HBM, not from what the last call left in L2."""
+    import torch
+
     fn()
-    events, _ = on_card(lambda: [fn() for _ in range(reps)])
+    if cold_l2:
+        flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.int8, device="cuda")
+        events, _ = on_card(lambda: [(flush.zero_(), fn()) for _ in range(reps)])
+        del flush
+    else:
+        events, _ = on_card(lambda: [fn() for _ in range(reps)])
     hits = [e for e in events if name in e.key]
     recorded = sum(e.count for e in hits)
     check(recorded > 0, f"the profiler recorded launches of {name} "
@@ -405,12 +420,44 @@ def kernel_checks(device) -> dict:
             check(ops.bitmap_query_batched(bitmap, masks).equal(
                 ref.bitmap_query_batched_ref(bitmap, masks)),
                 f"B2 {how} selects Q={q} K={k} N={cols}")
+    byte_query_checks(device, gen)
     window_select_checks(device)
     embedding_bag_checks(device)
     seg_mm_checks(device)
     shares = flash_attention_checks(device)
     torch.cuda.synchronize()
     return shares
+
+
+# B2's byte values: the store writes 0 and 1; any nonzero byte counts as set (ROADMAP C.16)
+BYTE_VALUES = (0,) * 16 + (1, -128, -1, 2)
+# (N, Q, K) for B2's alignment cases: N at every residue mod 16, past one 4,096-entity block,
+# and graph3-like N = 14 (mod 16)
+BYTE_ALIGN_CASES = ([(n, q, k) for n in range(1, 35) for q, k in ((1, 3), (2, 50), (9, 20))]
+                    + [(n, 2, 50) for n in (4095, 4097, 4110, 100_014)] + [(1_000_014, 2, 5)])
+
+
+def byte_query_checks(device, gen) -> None:
+    """B2 against its plain version, bitwise, where its realigned 16-byte
+    loads and staged stores could go wrong: N at every residue mod 16, so
+    that rows and output rows start at every offset from alignment; bytes
+    -128, -1 and 2 beside 0 and 1; and bitmaps whose base is not 16-byte
+    aligned (a view 3 bytes into a larger tensor)."""
+    import torch
+
+    from repro_torch.kernels.bitmap_query import ops, ref
+
+    values = torch.tensor(BYTE_VALUES, dtype=torch.int8)
+    for n, q, k in BYTE_ALIGN_CASES:
+        masks = torch.rand((q, k), generator=gen) < 0.3
+        masks[0, 0] = True
+        masks = masks.to(device)
+        for off in (0, 3):
+            big = values[torch.randint(0, len(BYTE_VALUES), (k * n + off,), generator=gen)]
+            bitmap = big.to(device)[off:off + k * n].view(k, n)
+            check(ops.bitmap_query_batched(bitmap, masks).equal(
+                ref.bitmap_query_batched_ref(bitmap, masks)),
+                f"B2 bytes in {sorted(set(BYTE_VALUES))} N={n} Q={q} K={k} base offset {off}")
 
 
 def window_select_checks(device) -> None:
@@ -636,15 +683,17 @@ def sums_close(got, want, scale) -> bool:
 
 def seg_mm_checks(device) -> None:
     """B5 against its plain version on the card over ragged shapes: every
-    D the path runs and wider, hub rows (degree 10,000 and more), empty
-    rows, unsorted dst, weighted and not; and bitwise run to run; src ids
-    N, N + 5 and -N - 2, which read the rows the reference's gather reads."""
+    D the path runs and wider (D % 4 == 0 takes 16-byte loads), hub rows
+    (degree 10,000 and more), empty rows, unsorted dst, weighted and not;
+    and bitwise run to run; src ids N, N + 5 and -N - 2, which read the
+    rows the reference's gather reads; x whose base is not 16-byte aligned
+    (a view 4 bytes into a larger tensor), and a row view ``big[1:]``."""
     import torch
 
     from repro_torch.kernels.seg_mm import ops, ref
 
     gen = torch.Generator(device="cpu").manual_seed(2)
-    for d in (1, 7, 16, 64, 128, 300):
+    for d in (1, 4, 7, 8, 16, 64, 128, 300):
         for n, e in ((1, 3), (37, 91), (5000, 40_000), (20_000, 60_000)):
             src = torch.randint(0, n, (e,), dtype=torch.int32, generator=gen)
             dst = torch.randint(0, n, (e,), dtype=torch.int32, generator=gen)
@@ -673,6 +722,24 @@ def seg_mm_checks(device) -> None:
         got = ops.seg_mm(x, src, dst, n)
         want = ref.seg_mm_ref(x, src, dst, n)
         check(sums_close(got, want, ref.seg_mm_ref(x.abs(), src, dst, n)), f"B5 src id {bad}")
+    # x at a base that is not 16-byte aligned, and a row view of a larger x
+    for d in (4, 7, 8, 16, 64):
+        big = torch.randn(((n + 1) * d + 1,), generator=gen).to(device)
+        src = torch.randint(0, n, (e,), dtype=torch.int32, generator=gen).to(device)
+        dst = torch.randint(0, n, (e,), dtype=torch.int32, generator=gen).to(device)
+        w = torch.rand(e, generator=gen).to(device)
+        views = {"4 bytes in": big[1:1 + n * d].view(n, d),
+                 "big[1:]": big[:(n + 1) * d].view(n + 1, d)[1:]}
+        for where, x in views.items():
+            check(x.is_contiguous(), f"B5 view {where} is contiguous")
+            for ew in (None, w):
+                got = ops.seg_mm(x, src, dst, n, edge_weight=ew)
+                want = ref.seg_mm_ref(x, src, dst, n, edge_weight=ew)
+                scale = ref.seg_mm_ref(x.abs(), src, dst, n,
+                                       edge_weight=None if ew is None else ew.abs())
+                what = f"B5 D={d} x {where} weighted={ew is not None}"
+                check(sums_close(got, want, scale), what)
+                check(got.equal(ops.seg_mm(x, src, dst, n, edge_weight=ew)), what + " run to run")
 
 
 def answer(pg, reqs, sync):
@@ -1787,9 +1854,11 @@ def bitmap_query_entry(name: str, table, masks, launches: int) -> dict:
     """Phase 5's B1 (int32 ``table``, the packed plane) or B2 (int8, the
     byte plane) line at the fused 1-hop request's masks.  ``bound_ms``
     counts the rows the masks select (``selected_rows_bytes``);
-    ``bound_all_rows_ms`` the whole plane, the first design's bound.  B1 is
-    also timed with every row selected (``*_all_rows``: the dense case, and
-    ``bitplane.or_reduce``'s)."""
+    ``bound_all_rows_ms`` the whole plane, the first design's bound.  Both
+    are also timed with every row selected (``*_all_rows``: the dense case,
+    and ``bitplane.or_reduce``'s for B1).  ``device_ms`` is L2-warm (the
+    selected rows can stay in L2 over the timed calls); ``*_cold_l2``
+    flushes L2 before every call."""
     import torch
 
     from repro_torch.kernels.bitmap_query import ops, ref
@@ -1806,6 +1875,8 @@ def bitmap_query_entry(name: str, table, masks, launches: int) -> dict:
              "max_abs_err": max_abs_err(call(table, masks), plain(table, masks)),
              "ms": time_ms(lambda: call(table, masks)),
              "device_ms": kernel_device_ms(lambda: call(table, masks), kname)["ms"],
+             "device_ms_cold_l2": kernel_device_ms(lambda: call(table, masks), kname,
+                                                   cold_l2=True)["ms"],
              "plain_ms": time_ms(lambda: plain(table, masks), 10),
              "bound_ms": selected_rows_bytes(table, masks) / HBM_BYTES_PER_S * 1e3,
              "bound_by": "bytes",
@@ -1814,10 +1885,11 @@ def bitmap_query_entry(name: str, table, masks, launches: int) -> dict:
              "bound_all_rows_ms": selected_rows_bytes(table, full) / HBM_BYTES_PER_S * 1e3,
              "shape": {"Q": q, "K": k, "W" if packed else "N": table.shape[1],
                        "rows_selected": int(masks.any(dim=0).sum())}}
-    if packed:
-        check(call(table, full).equal(plain(table, full)), f"{name} exact with every row selected")
-        entry["ms_all_rows"] = time_ms(lambda: call(table, full))
-        entry["device_ms_all_rows"] = kernel_device_ms(lambda: call(table, full), kname)["ms"]
+    check(call(table, full).equal(plain(table, full)), f"{name} exact with every row selected")
+    entry["ms_all_rows"] = time_ms(lambda: call(table, full))
+    entry["device_ms_all_rows"] = kernel_device_ms(lambda: call(table, full), kname)["ms"]
+    entry["device_ms_all_rows_cold_l2"] = kernel_device_ms(lambda: call(table, full), kname,
+                                                           cold_l2=True)["ms"]
     return entry
 
 
@@ -1875,8 +1947,12 @@ def seg_mm_entry(name: str, call, launches: int) -> dict:
     once) as the library yardstick.  The bound counts the bytes a CSR
     segment sum must move: per edge a column index and a weight, the row
     pointers, once each row of x that some edge reads, and the output
-    written once; ``bound_design_ms`` adds the order entry per edge that
-    this design reads."""
+    written once; ``bound_design_ms`` counts this design's own traffic:
+    the row pointers, per kept edge (dst in [0, n)) its src and weight
+    entries and a row of x, and the output.  ``layout_ms`` is the layout
+    build a batch pays once (sort, row pointers, src into dst order); the
+    weights' gather into dst order runs on every call, inside ``ms``.
+    ``device_ms_cold_l2`` flushes L2 before every call."""
     import torch
 
     from repro_torch.kernels.seg_mm import ops, ref
@@ -1886,7 +1962,7 @@ def seg_mm_entry(name: str, call, launches: int) -> dict:
     want = ref.seg_mm_ref(x, src, dst, n, edge_weight=w)
     scale = ref.seg_mm_ref(x.abs(), src, dst, n, edge_weight=None if w is None else w.abs())
     check(sums_close(got, want, scale), f"timed {name} agrees with its plain version")
-    layout = ops.get_layout(dst, n)
+    layout = ops.get_layout(dst, n, src)
     perm = layout.order.to(torch.int64)
     values = torch.ones_like(src, dtype=torch.float32) if w is None else w
     csr = torch.sparse_csr_tensor(layout.row_ptr.to(torch.int64), src.to(torch.int64)[perm],
@@ -1894,19 +1970,27 @@ def seg_mm_entry(name: str, call, launches: int) -> dict:
     lib = torch.sparse.mm(csr, x)
     e, d = src.numel(), x.shape[1]
     x_rows = torch.unique(src).numel()
-    needed = e * (4 + (0 if w is None else 4)) + (n + 1) * 4 + x_rows * d * 4 + n * d * 4
+    edge_bytes = 4 + (0 if w is None else 4)
+    needed = e * edge_bytes + (n + 1) * 4 + x_rows * d * 4 + n * d * 4
+    kept = int(layout.row_ptr[-1] - layout.row_ptr[0])
+    design = (n + 1) * 4 + kept * (edge_bytes + d * 4) + n * d * 4
+
+    def call_kernel():
+        return ops.seg_mm(x, src, dst, n, edge_weight=w)
+
     return {"name": name, "route": "cuda", "source": SOURCES["seg_mm"],
             "replaces": "src/repro/kernels/seg_mm/kernel.py:98",
             "launches": launches,
             "max_abs_err": float((got - want).abs().max()) if got.numel() else 0.0,
-            "ms": time_ms(lambda: ops.seg_mm(x, src, dst, n, edge_weight=w)),
-            "device_ms": kernel_device_ms(lambda: ops.seg_mm(x, src, dst, n, edge_weight=w),
-                                          "seg_mm_kernel")["ms"],
+            "ms": time_ms(call_kernel),
+            "device_ms": kernel_device_ms(call_kernel, "seg_mm_kernel")["ms"],
+            "device_ms_cold_l2": kernel_device_ms(call_kernel, "seg_mm_kernel",
+                                                  cold_l2=True)["ms"],
             "plain_ms": time_ms(lambda: ref.seg_mm_ref(x, src, dst, n, edge_weight=w), 10),
             "bound_ms": needed / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": time_ms(lambda: torch.sparse.mm(csr, x), 10),
-            "layout_ms": time_ms(lambda: ops.build_layout(dst, n), 10),
-            "bound_design_ms": (needed + 4 * e) / HBM_BYTES_PER_S * 1e3,
+            "layout_ms": time_ms(lambda: ops.build_layout(dst, n, src), 10),
+            "bound_design_ms": design / HBM_BYTES_PER_S * 1e3,
             "library_max_abs_err": float((lib - want).abs().max()) if lib.numel() else 0.0,
             "shape": {"N_src": int(x.shape[0]), "x_rows_read": x_rows, "n": int(n), "E": int(e),
                       "D": int(d)}}
@@ -2052,7 +2136,15 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
     if device == "cuda":
         check(byte_launches[ops.BYTE] > 0, "the byte path launched the byte kernel")
     check(same_result(resb, results[0]), "byte layout equals packed layout")
-    print("phase 4 ok: byte layout equals packed layout", flush=True)
+    byte_ms = []
+    for _ in range(5):  # the same request again, warm
+        t0 = time.perf_counter()
+        pgb.match(text)
+        sync()
+        byte_ms.append((time.perf_counter() - t0) * 1e3)
+    out["byte_request_ms"] = statistics.median(byte_ms)
+    print("phase 4 ok: byte layout equals packed layout;", json.dumps(
+        {"byte_request_ms": out["byte_request_ms"]}), flush=True)
 
     # --- phase 5: kernel times at the main path's shapes
     if device == "cuda":
@@ -2101,6 +2193,8 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
         out["kernels"] = [b1, b2, b3, *b4, *b5, *b6]
         for entry in out["kernels"]:  # on the kernel's own time
             entry["share_of_bound"] = entry["bound_ms"] / entry["device_ms"]
+            if "device_ms_cold_l2" in entry:
+                entry["share_of_bound_cold_l2"] = entry["bound_ms"] / entry["device_ms_cold_l2"]
         out["peak_mem_gib"] = max(torch.cuda.max_memory_allocated() / 2**30,
                                   out["gnn"]["peak_mem_gib"], out["gnn"]["peak_mem_gib_before"],
                                   out["recsys"]["peak_mem_gib"], out["lm"]["peak_mem_gib"])

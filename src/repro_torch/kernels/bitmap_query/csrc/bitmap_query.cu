@@ -19,7 +19,7 @@
 // integer ALUs would become the limit.  B1 needs only the rows that some
 // query selects: on the main path 1-3 of graph3's 50 labels or
 // relationships.  Its least time is (selected rows' bytes + masks +
-// output bytes) / 3.35 TB/s; B2 still reads every row.
+// output bytes) / 3.35 TB/s, and B2's the same with its byte rows.
 //
 // Design of B1: one thread per kCols word columns (strided by the block
 // width, so a warp's loads of one plane row are contiguous and coalesced),
@@ -40,12 +40,26 @@
 // them per row, eight rows at a time, keep 64 bytes a thread in flight
 // (chosen on the card over 1 or 4 columns and 4 rows in flight).
 //
-// Design of B2: one thread per 4 entities; the loop over all K rows runs
-// inside the thread with several rows in flight, each row folded into up
-// to kQ accumulators through selects expanded to full-word masks in
-// shared memory (kKTile rows at a time).  B2 falls back to byte loads and
-// stores where a row is not 4-byte aligned.  Skipping unselected rows, as
-// B1 does, is left for later work.
+// Design of B2: the same on-card compaction as B1 (stage_rows), so only
+// the rows some query of a group selects are read, and an all-false group
+// writes zeros.  A thread owns an aligned span of 16 entities and up to kQ
+// query accumulators of 16 bytes in registers.  A byte row starts r = (its
+// address mod 16) bytes past alignment, the same r for every span of the
+// row whatever N is (graph3's N = 8,646,926 puts odd rows 2 bytes off
+// 4-byte alignment), so a thread loads the two aligned 16-byte words that
+// cover its span and realigns them with funnel shifts: every load is 16
+// bytes wide and a warp's loads of a row are contiguous.  The selected
+// rows are taken kInFlight at a time, all their loads issued before the
+// first is used (two, chosen on the card over 1, 4 and 8: more rows in
+// flight cost registers, and so blocks resident, at 3 rows or 50).  Rows fold raw (OR of the bytes, AND with the row's
+// select word per query); each output byte is 1 where the OR is non-zero:
+// the paper's OR over nonzero bytes (section VI), which keeps bytes such
+// as -128, -1 or 2 set, as the reference's bitmap_query_batched_ref and
+// query_any_scan do (ROADMAP C.16; the Pallas kernel's mask @ bitmap > 0.5
+// counts instead, and differs on such bytes).  Output rows start q * N
+// bytes in, at any alignment: each query's 4,096 bytes of the block are
+// staged in shared memory, then written as aligned 16-byte stores, with
+// the ragged head and tail (under 16 bytes each) written byte by byte.
 //
 // Each launcher runs on the caller's stream, allocates nothing and returns
 // cudaGetLastError() so the caller can raise on a refused launch.
@@ -57,24 +71,14 @@ namespace {
 
 constexpr int kThreads = 256;  // threads per block
 constexpr int kQ = 8;          // queries one thread carries in registers
-constexpr int kKTile = 256;    // attribute rows staged in shared memory at once
+constexpr int kKTile = 256;    // attribute rows compacted at once
 constexpr int kCols = 2;       // B1: word columns per thread
 constexpr int kWarps = kThreads / 32;
-static_assert(kKTile == kThreads, "B1 compacts one attribute row per thread");
+constexpr int kSpan = 16;      // B2: entities per thread
+constexpr int kInFlight = 2;   // B2: selected rows whose loads are issued together
+static_assert(kKTile == kThreads, "one attribute row is compacted per thread");
 
-// Expand masks[q0 .. q0+kQ, a0 .. a0+kKTile) into full-word selects (B2).
-__device__ __forceinline__ void stage_selects(uint32_t (*sel)[kKTile],
-                                              const uint8_t* __restrict__ masks,
-                                              int q0, int nq, int k, int a0, int ka) {
-  for (int i = threadIdx.x; i < kQ * kKTile; i += blockDim.x) {
-    const int j = i / kKTile;
-    const int a = i - j * kKTile;
-    const bool on = j < nq && a < ka && masks[(int64_t)(q0 + j) * k + a0 + a] != 0;
-    sel[j][a] = on ? 0xFFFFFFFFu : 0u;
-  }
-}
-
-// B1: the rows of tile [a0, a0 + ka) that some query of the group selects,
+// The rows of tile [a0, a0 + ka) that some query of the group selects,
 // in ascending order, as entries (row << kQ) | select bits; returns how
 // many.  Entry i of the list is written by the thread of row i's tile slot.
 __device__ __forceinline__ int stage_rows(uint32_t* list, int* warp_rows,
@@ -158,50 +162,108 @@ __device__ __forceinline__ uint32_t lanes_nonzero(uint32_t x) {
   return x & 0x01010101u;
 }
 
+// The 16 bytes that start r bytes into lo, continuing into hi (r in [0, 16)).
+__device__ __forceinline__ uint4 realign(uint4 lo, uint4 hi, int r) {
+  const uint32_t x[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  const int q = r >> 2, sh = (r & 3) * 8;
+  uint32_t o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {  // x[j + q] and x[j + q + 1], with no dynamic index
+    const uint32_t a = q == 0 ? x[j] : q == 1 ? x[j + 1] : q == 2 ? x[j + 2] : x[j + 3];
+    const uint32_t b = q == 0 ? x[j + 1] : q == 1 ? x[j + 2] : q == 2 ? x[j + 3] : x[j + 4];
+    o[j] = __funnelshift_r(a, b, sh);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// Bytes e .. e + 15 of a row of n bytes (e a multiple of 16, e < n), read as
+// the aligned 16-byte words that cover them; bytes at or past n are
+// undefined.  Both words hold a byte of the row, so they lie inside its
+// tensor's allocation (allocations on the card are at least 16-byte aligned).
+__device__ __forceinline__ uint4 load_span(const uint8_t* row, int64_t e, int64_t n) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(row + e);
+  const int r = (int)(p & 15u);
+  const uint4* a = reinterpret_cast<const uint4*>(p - r);
+  const uint4 lo = __ldg(a);
+  uint4 hi = make_uint4(0u, 0u, 0u, 0u);
+  if (r != 0 && e + kSpan - r < n) hi = __ldg(a + 1);
+  return realign(lo, hi, r);
+}
+
+__device__ __forceinline__ uint4 nonzero_bytes(uint4 v) {
+  return make_uint4(lanes_nonzero(v.x), lanes_nonzero(v.y), lanes_nonzero(v.z),
+                    lanes_nonzero(v.w));
+}
+
+template <int NQ>
 __global__ void __launch_bounds__(kThreads)
 bitmap_query_byte_kernel(const uint8_t* __restrict__ bitmap,
                          const uint8_t* __restrict__ masks,
                          uint8_t* __restrict__ out, int q, int k, int n) {
-  __shared__ uint32_t sel[kQ][kKTile];
-  const int64_t e0 = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  constexpr int kBlockSpan = kThreads * kSpan;
+  __shared__ uint32_t list[kKTile];
+  __shared__ int warp_rows[kWarps];
+  __shared__ uint4 stage[kThreads + 1];
+  const int64_t b0 = (int64_t)blockIdx.x * kBlockSpan;  // the block's first entity
+  const int64_t e = b0 + (int64_t)threadIdx.x * kSpan;
+  const bool live = e < n;
   const int q0 = blockIdx.y * kQ;
-  const int nq = min(kQ, q - q0);
-  uint32_t acc[kQ];
+  const int nq = min(NQ, q - q0);
+  uint4 acc[NQ];
 #pragma unroll
-  for (int j = 0; j < kQ; ++j) acc[j] = 0u;
+  for (int j = 0; j < NQ; ++j) acc[j] = make_uint4(0u, 0u, 0u, 0u);
 
   for (int a0 = 0; a0 < k; a0 += kKTile) {
     const int ka = min(kKTile, k - a0);
-    __syncthreads();
-    stage_selects(sel, masks, q0, nq, k, a0, ka);
-    __syncthreads();
-    if (e0 < n) {
-#pragma unroll 4
-      for (int a = 0; a < ka; ++a) {
-        const uint8_t* p = bitmap + (int64_t)(a0 + a) * n + e0;
-        uint32_t v;
-        if (e0 + 4 <= n && (reinterpret_cast<uintptr_t>(p) & 3u) == 0) {
-          v = __ldg(reinterpret_cast<const uint32_t*>(p));
-        } else {
-          v = 0u;
-          for (int i = 0; i < 4 && e0 + i < n; ++i) v |= (uint32_t)__ldg(p + i) << (8 * i);
-        }
+    __syncthreads();  // the previous tile's list is no longer read
+    const int rows = stage_rows(list, warp_rows, masks, q0, nq, k, a0, ka);
+    const uint8_t* tile = bitmap + (int64_t)a0 * n;
+    for (int i0 = 0; i0 < rows; i0 += kInFlight) {
+      uint32_t entry[kInFlight];
+      uint4 v[kInFlight];
 #pragma unroll
-        for (int j = 0; j < kQ; ++j) acc[j] |= v & sel[j][a];
+      for (int u = 0; u < kInFlight; ++u) {
+        entry[u] = i0 + u < rows ? list[i0 + u] : 0u;
+        v[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (live && i0 + u < rows) v[u] = load_span(tile + (int64_t)(entry[u] >> kQ) * n, e, n);
+      }
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          const uint32_t sel = 0u - ((entry[u] >> j) & 1u);
+          acc[j].x |= v[u].x & sel;
+          acc[j].y |= v[u].y & sel;
+          acc[j].z |= v[u].z & sel;
+          acc[j].w |= v[u].w & sel;
+        }
       }
     }
   }
-  if (e0 < n) {
+
+  // each query's bytes of the block: staged, then aligned 16-byte stores
+  const int span = (int)min((int64_t)kBlockSpan, (int64_t)n - b0);
+  const uint8_t* staged = reinterpret_cast<const uint8_t*>(stage);
 #pragma unroll
-    for (int j = 0; j < kQ; ++j) {
-      if (j >= nq) continue;
-      const uint32_t bits = lanes_nonzero(acc[j]);
-      uint8_t* o = out + (int64_t)(q0 + j) * n + e0;
-      if (e0 + 4 <= n && (reinterpret_cast<uintptr_t>(o) & 3u) == 0) {
-        *reinterpret_cast<uint32_t*>(o) = bits;
-      } else {
-        for (int i = 0; i < 4 && e0 + i < n; ++i) o[i] = (uint8_t)((bits >> (8 * i)) & 1u);
-      }
+  for (int j = 0; j < NQ; ++j) {
+    if (j >= nq) break;
+    __syncthreads();  // the previous query's stage is read
+    stage[threadIdx.x] = nonzero_bytes(acc[j]);
+    if (threadIdx.x == 0) stage[kThreads] = make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
+    uint8_t* o = out + (int64_t)(q0 + j) * n + b0;
+    // bytes before the first 16-byte aligned address of the block's output
+    const int lead = (int)((16u - (reinterpret_cast<uintptr_t>(o) & 15u)) & 15u);
+    const int c = lead + threadIdx.x * kSpan;
+    if (c + kSpan <= span)
+      *reinterpret_cast<uint4*>(o + c) = realign(stage[threadIdx.x], stage[threadIdx.x + 1], lead);
+    const int full = span > lead ? (span - lead) / kSpan : 0;
+    const int tail = lead + full * kSpan;  // the ragged tail is [tail, span)
+    const int i = threadIdx.x;
+    if (i < kSpan) {
+      if (i < lead && i < span) o[i] = staged[i];
+    } else if (i < 2 * kSpan) {
+      if (tail + i - kSpan < span) o[tail + i - kSpan] = staged[tail + i - kSpan];
     }
   }
 }
@@ -229,11 +291,17 @@ extern "C" int bitmap_query_packed_launch(const void* plane, const void* masks, 
 extern "C" int bitmap_query_byte_launch(const void* bitmap, const void* masks, void* out,
                                         int q, int k, int n, void* stream) {
   if (q > 0 && n > 0) {
-    const int64_t threads_needed = ((int64_t)n + 3) / 4;
-    const dim3 grid((unsigned)((threads_needed + kThreads - 1) / kThreads), (q + kQ - 1) / kQ);
-    bitmap_query_byte_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(bitmap), static_cast<const uint8_t*>(masks),
-        static_cast<uint8_t*>(out), q, k, n);
+    const dim3 grid((unsigned)(((int64_t)n + kThreads * kSpan - 1) / (kThreads * kSpan)),
+                    (q + kQ - 1) / kQ);
+    const auto* b = static_cast<const uint8_t*>(bitmap);
+    const auto* m = static_cast<const uint8_t*>(masks);
+    auto* o = static_cast<uint8_t*>(out);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    // live queries of the widest group, rounded up to an instantiation
+    if (q == 1) bitmap_query_byte_kernel<1><<<grid, kThreads, 0, s>>>(b, m, o, q, k, n);
+    else if (q == 2) bitmap_query_byte_kernel<2><<<grid, kThreads, 0, s>>>(b, m, o, q, k, n);
+    else if (q <= 4) bitmap_query_byte_kernel<4><<<grid, kThreads, 0, s>>>(b, m, o, q, k, n);
+    else bitmap_query_byte_kernel<kQ><<<grid, kThreads, 0, s>>>(b, m, o, q, k, n);
   }
   return static_cast<int>(cudaGetLastError());
 }

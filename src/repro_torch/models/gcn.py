@@ -77,9 +77,11 @@ def params_from_reference(params: Dict, cfg: GCNConfig, device=None) -> Dict:
 
 
 def forward(params: Dict, batch: GraphBatch, cfg: GCNConfig) -> torch.Tensor:
-    """Logits (N, n_classes).  Both layers pass the same ``edge_dst`` tensor
-    to ``spmm_di``, so on the card B5's layout is built once per batch and
-    found in its cache by the second layer."""
+    """Logits (N, n_classes).  Both layers pass the same ``edge_src`` and
+    ``edge_dst`` tensors to ``spmm_di``, so on the card B5's layout (the
+    dst sort, ``edge_src`` in dst order) is built once per batch and found
+    in its cache by the second layer; each layer permutes ``w`` into dst
+    order again (one gather of E floats)."""
     x = batch.x.to(cfg.dtype)
     w = degree_norm(batch.edge_src, batch.edge_dst, batch.n_nodes, mode=cfg.norm)
     w = w * batch.edge_mask.to(w.dtype)

@@ -2,13 +2,20 @@
 plain versions (the CPU route of every wrapper) against
 ``repro.kernels.bitmap_query.ref`` and against the Pallas ops run in
 interpret mode, bitwise; and the wrappers' checks.  The CUDA kernels are
-held to these plain versions on the card in test_torch_kernels_cuda.py."""
+held to these plain versions on the card in test_torch_kernels_cuda.py.
+
+ROADMAP C.16: on bytes other than 0 and 1 the reference splits.  Its
+plain ``bitmap_query_batched_ref`` and the store's ``query_any_scan`` OR
+the nonzero bytes (the paper's §VI semantics); its Pallas kernel counts
+(``mask @ bitmap > 0.5``).  The port keeps the OR; the split is pinned
+here, not hidden."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from _torch_parity import as_np
+from repro.core import dip_arr as rdip
 from repro.kernels.bitmap_query import ops as rops
 from repro.kernels.bitmap_query import ref as rref
 from repro_torch.kernels.bitmap_query import ops, ref
@@ -121,3 +128,58 @@ def test_bucketed_q_matches_reference():
     with pytest.raises(ValueError):
         ops.bucketed_q(0)
 
+
+
+# ROADMAP C.16: the input on which the reference's byte queries split
+C16_BITMAP = np.array([[-1, 2, 0, 1], [1, -1, 0, 0]], np.int8)
+C16_MASKS = np.array([[True, False], [True, True]])
+
+
+def _byte_answers(bitmap, masks):
+    """The port's byte query, the reference's plain version, its store's
+    ``query_any_scan`` (one query at a time) and its Pallas kernel in
+    interpret mode, as numpy bool arrays."""
+    port = as_np(ops.bitmap_query_batched(torch.from_numpy(bitmap), torch.from_numpy(masks)))
+    jb, jm = jnp.asarray(bitmap), jnp.asarray(masks)
+    dip = rdip.DIPArr(bitmap=jb, k=bitmap.shape[0], n=bitmap.shape[1], packed=False)
+    scan = np.stack([as_np(rdip.query_any_scan(dip, jm[i])) for i in range(masks.shape[0])])
+    return (port, as_np(rref.bitmap_query_batched_ref(jb, jm)), scan,
+            as_np(rops.bitmap_query_batched(jb, jm)))
+
+
+def _c16_inputs(case):
+    if case == "roadmap":
+        return C16_BITMAP, C16_MASKS
+    rng = np.random.default_rng(16)
+    q, k, n = (3, 7, 300) if case == "wide" else (2, 50, 1000)
+    values = np.array([0, 0, 0, 0, -128, -1, 2] if case == "wide" else [0, 0, 0, 1], np.int8)
+    masks = rng.random((q, k)) < 0.4
+    masks[0, 0] = True
+    return rng.choice(values, size=(k, n)), masks
+
+
+@pytest.mark.parametrize("case", ["roadmap", "wide"])
+def test_c16_bytes_beyond_0_and_1_follow_the_or_of_nonzero_bytes(case):
+    """On bytes -128, -1 and 2 the port equals the reference's plain version
+    and ``query_any_scan``, and differs from its Pallas kernel exactly
+    where the selected bytes are nonzero but their sum is not above 0.5."""
+    bitmap, masks = _c16_inputs(case)
+    port, plain, scan, pallas = _byte_answers(bitmap, masks)
+    np.testing.assert_array_equal(port, plain)
+    np.testing.assert_array_equal(port, scan)
+    counts = masks.astype(np.float32) @ bitmap.astype(np.float32)
+    np.testing.assert_array_equal(pallas, counts > 0.5)
+    assert not np.array_equal(port, pallas)  # the split is recorded, not hidden
+    np.testing.assert_array_equal(port & ~pallas, port != (counts > 0.5))
+    if case == "roadmap":
+        np.testing.assert_array_equal(port, [[1, 1, 0, 1], [1, 1, 0, 1]])
+        np.testing.assert_array_equal(pallas, [[0, 1, 0, 1], [0, 1, 0, 1]])
+
+
+@pytest.mark.parametrize("case", ["store_bytes"])
+def test_c16_store_bytes_agree_everywhere(case):
+    """On the bytes the store writes (0 and 1) every byte query agrees."""
+    bitmap, masks = _c16_inputs(case)
+    port, plain, scan, pallas = _byte_answers(bitmap, masks)
+    for other in (plain, scan, pallas):
+        np.testing.assert_array_equal(port, other)

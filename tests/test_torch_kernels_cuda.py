@@ -2,13 +2,15 @@
 embedding_bag B4, seg_mm B5, flash_attention B6) against their plain
 PyTorch versions on the card, with their launch counts: bitwise, or for
 B5's float sums within a bound on reordered summation (and bitwise run to
-run), or for B6 within the reference's attention tolerances (2e-5 in f32,
-2e-2 in bf16; f32 scores at the softcap's scale are held to the plain
+run, and bitwise to the CPU's plain version where the inputs are the
+same), or for B6 within the reference's attention tolerances (2e-5 in
+f32, 2e-2 in bf16; f32 scores at the softcap's scale are held to the plain
 version in float64), each B6 case on the kernel ``kernel.variant`` names
-(wgmma/TMA, mma.sync or SIMT) and counted under its name; B5 on src ids
-outside [0, N), which read the reference's rows; DLRM's retrieval ties in
-index order; and the routing that sends the card's GCN (B5), attention
-(B6) and transformer through them.  Needs an NVIDIA
+(wgmma/TMA, mma.sync or SIMT) and counted under its name; B2 at every N
+mod 16 with bytes other than 0 and 1; B5 on src ids outside [0, N), which
+read the reference's rows, and on x from an unaligned base; DLRM's
+retrieval ties in index order; and the routing that sends the card's GCN
+(B5), attention (B6) and transformer through them.  Needs an NVIDIA
 card (marker ``cuda``; skips without one).  Imports neither JAX nor the
 reference package, so it runs where only the port is installed:
 
@@ -91,6 +93,30 @@ def test_kernels_with_few_selected_rows(cuda, how, q, k, cols):
     assert ops.bitmap_query_batched(bitmap, masks).equal(
         ref.bitmap_query_batched_ref(bitmap, masks))
     assert ops.launches == {ops.PACKED: 1, ops.BYTE: 1}
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("n", [*range(1, 35), 4095, 4097, 4110, 100_014])
+def test_byte_kernel_at_every_alignment(cuda, n, offset):
+    """B2 realigns 16-byte loads by each row's offset from alignment and
+    stages its output rows: bitwise equal to the plain version at N of
+    every residue mod 16, on bytes -128, -1 and 2 beside 0 and 1 (any
+    nonzero byte is set, ROADMAP C.16), from a bitmap whose base sits
+    ``offset`` bytes into a larger tensor."""
+    rng = np.random.default_rng(n * 2 + offset)
+    values = np.array(chip_smoke.BYTE_VALUES, np.int8)
+    for q, k in ((1, 3), (2, 50), (9, 20)):
+        big = torch.from_numpy(rng.choice(values, k * n + offset)).to(cuda)
+        bitmap = big[offset:offset + k * n].view(k, n)
+        masks = torch.from_numpy(rng.random((q, k)) < 0.3)
+        masks[0, 0] = True
+        masks = masks.to(cuda)
+        ops.reset_launches()
+        assert ops.bitmap_query_batched(bitmap, masks).equal(
+            ref.bitmap_query_batched_ref(bitmap, masks)), (q, k)
+        assert ops.launches[ops.BYTE] == 1
     torch.cuda.synchronize()
 
 
@@ -182,7 +208,8 @@ def test_neighbor_sample_on_card_equals_cpu_given_the_same_priorities(cuda, monk
         assert a.equal(b.cpu())
 
 
-B5_CASES = [(d, n, e) for d in (1, 7, 16, 64, 128) for n, e in ((1, 5), (333, 1000), (4000, 30_000))]
+B5_CASES = [(d, n, e) for d in (1, 4, 7, 8, 16, 64, 128)
+            for n, e in ((1, 5), (333, 1000), (4000, 30_000))]
 
 
 def _seg_mm_inputs(d, n, e, device, *, hub=False):
@@ -226,7 +253,7 @@ def test_seg_mm_matches_plain_version(cuda, d, n, e, weighted):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [1, 7, 16, 64, 128])
+@pytest.mark.parametrize("d", [1, 4, 7, 8, 16, 64, 128])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_seg_mm_hub_rows(cuda, d, weighted):
     x, src, dst, w = _seg_mm_inputs(d, 3000, 40_000, cuda, hub=True)
@@ -247,6 +274,30 @@ def test_seg_mm_on_card_sums_in_the_cpu_plain_versions_order(cuda, d):
     want = sm_ref.seg_mm_ref(x, src, dst, 500, edge_weight=w)
     got = sm_ops.seg_mm(x.to(cuda), src.to(cuda), dst.to(cuda), 500, edge_weight=w.to(cuda))
     assert got.cpu().equal(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["4 bytes in", "big[1:]"])
+@pytest.mark.parametrize("d", [4, 7, 8, 16, 64])
+def test_seg_mm_reads_x_from_an_unaligned_base(cuda, d, view):
+    """16-byte loads need D % 4 == 0 and an aligned base: x that starts 4
+    bytes into a larger tensor takes the scalar path, a row view the one
+    its offset allows; both give the CPU plain version's bits, run to run."""
+    x, src, dst, w = _seg_mm_inputs(d, 500, 4000, "cpu")
+    big = torch.zeros(501 * d + 1)
+    if view == "4 bytes in":
+        xv = big[1:1 + 500 * d].view(500, d)
+    else:
+        xv = big[:501 * d].view(501, d)[1:]
+    xv.copy_(x)
+    xc = big.to(cuda)[xv.storage_offset():xv.storage_offset() + 500 * d].view(500, d)
+    for weight in (None, w):
+        want = sm_ref.seg_mm_ref(x, src, dst, 500, edge_weight=weight)
+        wc = None if weight is None else weight.to(cuda)
+        got = sm_ops.seg_mm(xc, src.to(cuda), dst.to(cuda), 500, edge_weight=wc)
+        assert got.cpu().equal(want)
+        assert got.equal(sm_ops.seg_mm(xc, src.to(cuda), dst.to(cuda), 500, edge_weight=wc))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

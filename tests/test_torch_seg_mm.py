@@ -5,9 +5,10 @@ On the CPU ``seg_mm`` runs its plain version (``ref.seg_mm_ref``); it is
 held to the reference's Pallas ``seg_mm`` (interpret mode, as the
 reference's own tests run it) and to its ``seg_mm_ref`` at rtol = atol =
 1e-5: the sums run in another order than the one-hot matmul's.  Inputs are
-seeded numpy arrays handed to both packages.  The layout (stable dst order
-and row pointers) is what the CUDA kernel reads; its cache is held to
-never serving a stale layout and to a bound on its size.
+seeded numpy arrays handed to both packages.  The layout (the row
+pointers of the stable dst order, and src and w in that order) is what the
+CUDA kernel reads; its cache is held to never serving a stale layout and
+to a bound on its size.
 """
 import gc
 
@@ -195,3 +196,92 @@ def test_plain_version_equals_segment_sum_order():
     got = seg_mm_ref(torch.from_numpy(x), torch.from_numpy(src), torch.from_numpy(dst), 25,
                      edge_weight=torch.from_numpy(w))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_layout_carries_src_and_w_in_dst_order(seed, weighted):
+    """What the kernel reads: ``src`` (in the layout) and ``w`` (permuted on
+    each call) in the stable dst order, so row v's edges are positions
+    row_ptr[v]:row_ptr[v+1] of them, in ascending edge id."""
+    x, src, dst, w = _inputs(20 + seed, 60, 400, 4, sorted_dst=False, weighted=weighted)
+    dst[::9] = -1  # dropped edges sit outside every row
+    t = torch.from_numpy
+    layout = ops.build_layout(t(dst), 60, t(src))
+    order = layout.order.numpy()
+    assert layout.src_sorted.dtype == torch.int32
+    np.testing.assert_array_equal(layout.src_sorted.numpy(), src[order])
+    w_sorted = ops.weights_in_dst_order(layout, None if w is None else t(w))
+    if weighted:
+        assert w_sorted.dtype == torch.float32
+        np.testing.assert_array_equal(w_sorted.numpy(), w[order])
+    else:
+        assert w_sorted is None
+    row_ptr = layout.row_ptr.numpy()
+    for v in range(60):
+        np.testing.assert_array_equal(layout.src_sorted.numpy()[row_ptr[v]:row_ptr[v + 1]],
+                                      src[dst == v])
+
+
+@pytest.mark.parametrize("change", ["src_other", "src_in_place", "w_other", "w_in_place",
+                                    "w_dropped"])
+def test_layout_cache_rebuilds_when_src_or_w_changes(change):
+    """The cache reuses a layout only for the same ``src`` and ``dst``
+    objects, each unmodified since: another ``src`` tensor or an in-place
+    write to it builds the layout again.  The weights are not part of it:
+    whichever ``w`` a call passes is permuted into the kept order."""
+    cache = ops.LayoutCache()
+    dst = torch.tensor([3, 1, 1, 0], dtype=torch.int32)
+    src = torch.tensor([0, 2, 4, 1], dtype=torch.int32)
+    w = torch.tensor([0.5, 0.25, 1.0, 2.0])
+    first = cache.get(dst, 5, src)
+    assert cache.get(dst, 5, src) is first and cache.builds == 1  # both the same
+    if change == "src_other":
+        src = src.clone()
+    elif change == "src_in_place":
+        src[0] = 3
+    elif change == "w_other":
+        w = w.clone()
+    elif change == "w_in_place":
+        w[1] = 4.0
+    else:
+        w = None
+    fresh = cache.get(dst, 5, src)
+    assert (fresh is first) == change.startswith("w_")
+    assert cache.builds == (1 if change.startswith("w_") else 2)
+    assert cache.get(dst, 5, src) is fresh
+    order = fresh.order.numpy()
+    np.testing.assert_array_equal(fresh.src_sorted.numpy(), src.numpy()[order])
+    w_sorted = ops.weights_in_dst_order(fresh, w)
+    if w is None:
+        assert w_sorted is None
+    else:
+        np.testing.assert_array_equal(w_sorted.numpy(), w.numpy()[order])
+
+
+@pytest.mark.parametrize("which", ["w", "src", "dst"])
+def test_layout_cache_never_reuses_what_it_built_from_an_inference_tensor(which):
+    """A tensor made under ``torch.inference_mode`` (the GCN's weights when
+    it serves) tracks no version, so an in-place write to it cannot be
+    seen: a layout built from an inference ``src`` or ``dst`` is built
+    again on every call, and the weights are permuted on every call, so
+    each is right after such a write."""
+    cache = ops.LayoutCache()
+    with torch.inference_mode():
+        t = {"dst": torch.tensor([3, 1, 1, 0], dtype=torch.int32),
+             "src": torch.tensor([0, 2, 4, 1], dtype=torch.int32),
+             "w": torch.tensor([0.5, 0.25, 1.0, 2.0])}
+        inference = t[which].clone()
+    t = {k: v.clone() for k, v in t.items()}  # normal tensors, versioned
+    t[which] = inference
+    first = cache.get(t["dst"], 5, t["src"])
+    with torch.inference_mode():
+        t[which][1] = 2  # unseen by any version counter
+        second = cache.get(t["dst"], 5, t["src"])
+    assert (second is first) == (which == "w")
+    assert cache.builds == (1 if which == "w" else 2)
+    order = np.argsort(t["dst"].numpy(), kind="stable")
+    np.testing.assert_array_equal(second.order.numpy(), order)
+    np.testing.assert_array_equal(second.src_sorted.numpy(), t["src"].numpy()[order])
+    np.testing.assert_array_equal(ops.weights_in_dst_order(second, t["w"]).numpy(),
+                                  t["w"].numpy()[order])

@@ -4,10 +4,8 @@
 
 Needs one CUDA card and ``nvcc``.  Each variant is
 ``src/repro_torch/kernels/neighbor_sample/csrc/neighbor_sample.cu`` with one
-part changed by a text substitution (a substitution that no longer finds its
-text raises: update ``CUTS`` with the kernel), built with ``nvcc`` into
-``build/kernels/ablations/`` (all builds at once) and timed by the card's own
-clock (``torch.profiler``), the variants in turns (each order once):
+part changed by a text substitution, built and timed in turns by
+``kernel_ablation``:
 
 * ``base``: the kernel as it ships;
 * ``no_select``: no seed's window is read; every row is the -1 / false fill,
@@ -30,14 +28,11 @@ card's name and power limit.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import subprocess
-from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from repro_torch.kernels import _build
+import kernel_ablation
 from repro_torch.kernels.neighbor_sample import kernel
 
 CUTS = {
@@ -50,48 +45,6 @@ CUTS = {
     "hub_rereads": [("      if (hi <= kWarp * R)\n", "      if (false)\n")],
 }
 WRONG_BY_DESIGN = ("no_select", "no_write")
-
-
-def _source(cuts) -> str:
-    text = kernel.SOURCE.read_text()
-    for old, new in cuts:
-        if old not in text:
-            raise RuntimeError(f"the kernel source no longer holds {old.strip()!r}")
-        text = text.replace(old, new)
-    return text
-
-
-def _build_variant(name: str, text: str) -> ctypes.CDLL:
-    out = _build.BUILD_DIR / "ablations"
-    out.mkdir(parents=True, exist_ok=True)
-    src, lib = out / f"window_select_{name}.cu", out / f"libwindow_select_{name}.so"
-    src.write_text(text)
-    cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
-    handle = ctypes.CDLL(str(lib))
-    kernel._declare(handle)
-    return handle
-
-
-def _device_ms(fn, reps: int) -> float:
-    """The kernel's own time per launch over ``reps`` launches."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and "window_select_kernel" in e.key]
-    count = sum(e.count for e in hits)
-    if not count:
-        raise RuntimeError("the profiler recorded no window_select_kernel launch")
-    return sum(e.self_device_time_total for e in hits) / 1e3 / count
 
 
 def _inputs(gen: torch.Generator):
@@ -124,36 +77,25 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("ablations: torch sees no CUDA card")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    texts = {name: _source(cuts) for name, cuts in CUTS.items()}
-    with ThreadPoolExecutor(len(texts)) as pool:
-        libs = dict(zip(texts, pool.map(_build_variant, texts, texts.values())))
+    smi = kernel_ablation.card()
+    libs = kernel_ablation.build_variants(kernel, "window_select", CUTS)
     gen = torch.Generator(device="cuda").manual_seed(17)
-    saved = kernel.LIBRARY._lib
-    try:
-        for name, start, deg, dst, words, pri, fanout in _inputs(gen):
-            outs = {v: [torch.empty((start.numel(), fanout), dtype=dt, device="cuda")
-                        for dt in (torch.int32, torch.int32, torch.bool)] for v in libs}
+    for name, start, deg, dst, words, pri, fanout in _inputs(gen):
+        outs = {v: [torch.empty((start.numel(), fanout), dtype=dt, device="cuda")
+                    for dt in (torch.int32, torch.int32, torch.bool)] for v in libs}
 
-            def call(v):
-                kernel.LIBRARY._lib = libs[v]
-                kernel.launch_window_select(start, deg, dst, words, pri, *outs[v])
+        def launch(v):
+            kernel.launch_window_select(start, deg, dst, words, pri, *outs[v])
 
-            for v in libs:
-                call(v)
-                if v not in WRONG_BY_DESIGN:
-                    if not all(a.equal(b) for a, b in zip(outs[v], outs["base"])):
-                        raise RuntimeError(f"{name}: {v} disagrees with base")
-            row = {"input": name, "fanout": fanout, "W": pri.shape[-1], "card": smi,
-                   "device_ms": {v: [] for v in libs}}
-            for v in [*libs, *reversed(libs)]:
-                row["device_ms"][v].append(_device_ms(lambda: call(v), args.reps))
-            print(json.dumps(row), flush=True)
-    finally:
-        kernel.LIBRARY._lib = saved
+        def check(v):
+            if v not in WRONG_BY_DESIGN:
+                if not all(a.equal(b) for a, b in zip(outs[v], outs["base"])):
+                    raise RuntimeError(f"{name}: {v} disagrees with base")
+
+        row = {"input": name, "fanout": fanout, "W": pri.shape[-1], "card": smi,
+               "device_ms": kernel_ablation.time_in_turns(kernel, libs, launch, check,
+                                                          "window_select_kernel", args.reps)}
+        print(json.dumps(row), flush=True)
     return 0
 
 
