@@ -25,6 +25,17 @@ none of whose failures is caught:
    requests (fused 1-hop, 2-hop with a fused edge batch, predicates,
    reversed hop, ``*1..3``, ``*``), time them, and hold every request kind
    bitwise against the same graph run through the port on the CPU;
+3a. the paper's other two stores and persistence on the same graph:
+   ``save_propgraph`` it, ``load_propgraph`` it back as ``list``, ``listd``
+   and ``arr`` (load and seal timed apart: the paper's build comparison
+   from the same raw pairs), answer phase 3's 32 requests on ``list`` and
+   ``listd`` (timed) and the six kinds under listd's forced ``inverted``
+   and ``budget`` impls, all bitwise equal to phase 3's answers (the
+   reloaded ``arr`` graph too: the round trip); one ``linked`` walk of
+   ``(a:l0)``'s chain (the paper's baseline, timed once) equal to the
+   inverted answer; each store's bytes on the card (§IV-D); and one
+   ``sample`` of ``(a:l0)`` on the listd graph, which runs B3, equal to
+   the arr graph's blocks at the same key;
 3b. sampling on the same graph: three ``PropGraph.sample`` requests with
    GraphSAGE's 15-10 fanouts (1,024 explicit ids; the seeds of a label
    pattern; a predicate pattern under an edge filter), timed; every layer
@@ -89,10 +100,13 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -756,6 +770,102 @@ def answer(pg, reqs, sync):
         results.append(res)
     total = time.perf_counter() - t_all
     return lat, results, total
+
+
+# ------------------------------------------------------------ other stores
+def store_bytes(store) -> int:
+    """Bytes of a sealed store's tensors on the card."""
+    import torch
+
+    built = store.finalize()
+    return sum(v.numel() * v.element_size() for v in vars(built).values() if torch.is_tensor(v))
+
+
+def stores_phase(pg, reqs, results, seed: int, device: str, sync) -> dict:
+    """Phase 3a (module docstring): ``results`` are phase 3's answers to
+    ``reqs``, already held to the CPU port."""
+    import torch
+
+    from repro_torch.core.io import load_propgraph, save_propgraph
+    from repro_torch.kernels.neighbor_sample import ops as ns_ops
+
+    t_phase = time.perf_counter()
+    kinds = reqs[:6]
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_graph.")
+    path = os.path.join(tmp, "graph3")
+    t0 = time.perf_counter()
+    save_propgraph(path, pg)
+    out["save_s"] = time.perf_counter() - t0
+    out["saved_mb"] = sum(f.stat().st_size for f in Path(path).iterdir()) / 1e6
+    graphs = {}
+    for backend in ("list", "listd", "arr"):
+        sync()
+        t0 = time.perf_counter()
+        g = load_propgraph(path, backend=backend, device=device)
+        sync()
+        t1 = time.perf_counter()
+        g._vstore.finalize()
+        g._estore.finalize()
+        sync()
+        graphs[backend] = g
+        out[backend] = {"load_s": t1 - t0, "seal_s": time.perf_counter() - t1,
+                        "store_bytes": {"vertex": store_bytes(g._vstore),
+                                        "edge": store_bytes(g._estore)}}
+    # the round trip: the reloaded arr graph answers as the saved one did
+    for (kind, text), want in zip(kinds, results):
+        check(same_result(graphs["arr"].match(text), want), f"3a: reloaded arr {kind} equals phase 3")
+    for backend in ("list", "listd"):
+        g = graphs[backend]
+        for _, text in kinds:  # warm
+            g.match(text)
+        lat, res, total = answer(g, reqs, sync)
+        out[backend].update(p50_ms=statistics.median(lat), p95_ms=float(np.percentile(lat, 95)),
+                            qps=len(reqs) / total)
+        for (kind, _), got, want in zip(kinds, res, results):
+            check(same_result(got, want), f"3a: {backend} {kind} equals arr")
+    listd = graphs["listd"]
+    out["listd"]["planned"] = [p.split("impl=")[1].split(" ")[0]
+                               for p in listd.explain(kinds[0][1]).splitlines() if "impl=" in p]
+    check(out["listd"]["planned"] and set(out["listd"]["planned"]) == {"budget"},
+          "3a: the planner picks listd's budget gather for selective masks")
+    for impl in ("inverted", "budget"):
+        for (kind, text), want in zip(kinds, results):
+            check(same_result(listd.match(text, impl=impl), want),
+                  f"3a: listd {kind} under impl={impl} equals arr")
+    # one label's mask on each store and impl; the linked walk once (the
+    # paper's baseline: one node per step along a chain of ~2% of n)
+    out["l0_mask_ms"] = {}
+    for backend, impl in (("arr", None), ("list", None), ("listd", "inverted"),
+                          ("listd", "budget")):
+        g = graphs[backend]
+        run_once = lambda: g.query_labels(["l0"], impl=impl)  # noqa: E731
+        out["l0_mask_ms"][f"{backend}:{impl or 'default'}"] = (
+            time_ms(run_once, reps=20) if device == "cuda" else None)
+    inverted = listd.query_labels(["l0"], impl="inverted")
+    sync()
+    t0 = time.perf_counter()
+    linked = listd.query_labels(["l0"], impl="linked")
+    sync()
+    out["linked_walk_s"] = time.perf_counter() - t0
+    out["linked_walk_steps"] = int(listd._vstore.attr_counts()[listd._vstore.known_ids(["l0"])][0])
+    check(linked.equal(inverted), "3a: the linked walk equals the inverted answer")
+    check(linked.equal(graphs["arr"].query_labels(["l0"])), "3a: the linked walk equals arr")
+    # sampling on the listd graph: seeds from its match, windows on B3
+    ns_ops.reset_launches()
+    blocks = listd.sample("(a:l0)", FANOUTS, key=seed)
+    sync()
+    out["b3_launches"] = ns_ops.launches[ns_ops.WINDOW_SELECT]
+    if device == "cuda":
+        check(out["b3_launches"] > 0, "3a: the listd graph's sample launched B3")
+    check(same_blocks(blocks, pg.sample("(a:l0)", FANOUTS, key=seed)),
+          "3a: the listd graph's blocks equal the arr graph's at the same key")
+    del graphs, listd, blocks, linked, inverted, g
+    shutil.rmtree(tmp)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
 
 
 # ---------------------------------------------------------------- sampling
@@ -2076,6 +2186,16 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
         check(same_result(res, cpu_pg.match(text)), f"{kind}: card result equals CPU result")
     check(all(r.n_vertices() > 0 for r in results[:6]), "every request kind matched something")
     print("phase 3 ok: every request kind equals the CPU port bit for bit", flush=True)
+
+    # --- phase 3a: the other two stores and persistence, from the same graph
+    out["stores"] = stores_phase(pg, reqs, results[:6], seed, device, sync)
+    print("phase 3a timings", json.dumps({
+        **{k: out["stores"][k] for k in ("phase_s", "save_s", "linked_walk_s")},
+        **{b: {k: out["stores"][b].get(k) for k in ("load_s", "seal_s", "p50_ms", "p95_ms")}
+           for b in ("list", "listd", "arr")}}), flush=True)
+    print("phase 3a ok: list, listd and the reloaded arr graph equal phase 3 bit for bit;",
+          "the linked walk equals the inverted answer; the listd sample equals arr's",
+          json.dumps({"b3_launches": out["stores"]["b3_launches"]}), flush=True)
 
     # --- phase 3b: sampling on the same graph
     sampled = sampling_phase(pg, cpu_pg, seed, device, sync)

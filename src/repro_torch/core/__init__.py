@@ -10,6 +10,8 @@ from repro_torch.core.di import (
     neighbors_padded,
 )
 from repro_torch.core.dip_arr import DIPArr, build_dip_arr
+from repro_torch.core.dip_list import DIPList, build_dip_list
+from repro_torch.core.dip_listd import DIPListD, build_dip_listd
 from repro_torch.core.property_graph import PropGraph
 from repro_torch.core.queries import (
     connected_entities,
@@ -29,6 +31,10 @@ __all__ = [
     "neighbors_padded",
     "DIPArr",
     "build_dip_arr",
+    "DIPList",
+    "build_dip_list",
+    "DIPListD",
+    "build_dip_listd",
     "PropGraph",
     "connected_entities",
     "extract_subgraph",

@@ -13,13 +13,15 @@ Workflow (§V of the paper):
 Ingestion follows the paper's three steps: (1) attribute values remapped to
 dense int ids (``AttributeMap``), (2) internal vertex/edge indices generated
 (vertex normalization + ``edge_lookup`` binary search), (3) bulk insert into
-the DIP-ARR store, which seals at its first query.
+the chosen DIP backend, which seals at its first query.  Backends: ``arr``
+(DIP-ARR bitmap), ``list`` (DIP-LIST CSR), ``listd`` (DIP-LISTD linked
+chains + inverted CSR).  ``core/io.py`` saves a graph and loads it under
+any backend.
 
-This port covers the ``arr`` backend on one device: ingest, ``match()``
-and ``sample()``.  The ``list``/``listd`` backends, meshes, the overlay
-(writes after a store sealed, deletes, snapshots, forks, compaction) and
-the frontier analytics are not ported yet and raise
-``NotImplementedError``.
+This port covers one device: ingest, ``match()`` and ``sample()`` on
+every backend.  Meshes, the overlay (writes after a store sealed,
+deletes, snapshots, forks, compaction) and the frontier analytics are not
+ported yet and raise ``NotImplementedError``.
 
 ``device=None`` means the CUDA card; with no card that raises
 ``RuntimeError`` instead of quietly running on the CPU.  Pass
@@ -33,7 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import bitplane, dip_arr
+from repro_torch.core import bitplane, dip_arr, dip_list, dip_listd
 from repro_torch.core.attr_map import AttributeMap
 from repro_torch.core.device import resolve_device
 from repro_torch.core.di import DIGraph, build_di, edge_lookup
@@ -64,28 +66,36 @@ def _row_counts(host: dip_arr.DIPArr) -> np.ndarray:
     return bm.sum(axis=1, dtype=np.int64)
 
 
+_BUILDERS = {  # backend -> (host build, placement)
+    "arr": (dip_arr.build_dip_arr_host, dip_arr.to_device),
+    "list": (dip_list.build_dip_list_host, dip_list.to_device),
+    "listd": (dip_listd.build_dip_listd_host, dip_listd.to_device),
+}
+
+
 class _AttrStore:
-    """One DIP-ARR store over ``n_entities`` (vertices or edges).
+    """One DIP store over ``n_entities`` (vertices or edges).
 
     Inserts collect (entity, attribute) pairs on the host; the first query
-    seals the store: the plane is built on the host, its per-attribute
-    counts taken, and it is placed on the device.  Writes after the seal
-    need the overlay, which is not ported yet.
+    seals the store: it is built on the host, its per-attribute counts
+    taken, and it is placed on the device.  Writes after the seal need the
+    overlay, which is not ported yet.
     """
 
     def __init__(self, backend: str, n_entities: int, device: torch.device):
-        if backend != "arr":
-            raise NotImplementedError(f"the {backend!r} store is not ported yet")
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
         self.backend = backend
         self.n = n_entities
         self.device = device
         self.amap = AttributeMap()
         self._pairs_e: List[np.ndarray] = []  # entity ids, insertion order
         self._pairs_a: List[np.ndarray] = []  # attribute ids
-        self._store: Optional[dip_arr.DIPArr] = None
-        self._host: Optional[dip_arr.DIPArr] = None  # host build awaiting upload
+        self._store = None  # DIPArr, DIPList or DIPListD on the device
+        self._host = None  # host build awaiting upload
         self._counts: Optional[np.ndarray] = None
         self._k_base: Optional[int] = None  # attribute rows in the sealed store
+        self.plane_only = False  # sealed from a plane: no raw pairs to save
 
     @classmethod
     def from_plane(cls, values: Sequence[str], bitmap, *, k: int, n: int, packed: bool,
@@ -100,6 +110,7 @@ class _AttrStore:
         store._counts = _row_counts(host)
         store._store = dip_arr.to_device(host, device)
         store._k_base = k
+        store.plane_only = True
         return store
 
     @property
@@ -108,8 +119,10 @@ class _AttrStore:
 
     @property
     def packed(self) -> bool:
-        """True when the store holds (or will hold) the packed word plane;
-        captured at build time."""
+        """True when the store holds (or will hold) the packed word plane
+        (arr only); captured at build time."""
+        if self.backend != "arr":
+            return False
         for built in (self._store, self._host):
             if built is not None:
                 return bool(built.packed)
@@ -133,23 +146,35 @@ class _AttrStore:
     def k(self) -> int:
         return max(len(self.amap), 1)
 
-    def _build_host(self) -> dip_arr.DIPArr:
-        """Host plane built from the raw pairs, with its per-attribute
-        counts; stashed so a stats read followed by a query builds once."""
+    def pairs(self) -> Tuple[np.ndarray, np.ndarray]:
+        """All (entity, attribute) pairs, in insertion order."""
+        if not self._pairs_e:
+            return np.zeros(0, np.int32), np.zeros(0, np.int32)
+        return np.concatenate(self._pairs_e), np.concatenate(self._pairs_a)
+
+    def _build_host(self):
+        """Host build from the raw pairs, with its per-attribute counts
+        (plane row sums; list: the deduped pairs' ``bincount``; listd: the
+        ``a_off`` segment lengths, which keep duplicate pairs); stashed so a
+        stats read followed by a query builds once."""
         if self._host is not None:
             return self._host
-        ent = np.concatenate(self._pairs_e) if self._pairs_e else np.zeros(0, np.int32)
-        att = np.concatenate(self._pairs_a) if self._pairs_a else np.zeros(0, np.int32)
-        host = dip_arr.build_dip_arr_host(ent, att, k=self.k, n=self.n)
-        self._counts = _row_counts(host)
+        ent, att = self.pairs()
+        host = _BUILDERS[self.backend][0](ent, att, k=self.k, n=self.n)
+        if self.backend == "arr":
+            self._counts = _row_counts(host)
+        elif self.backend == "list":
+            self._counts = np.bincount(host.val, minlength=self.k)
+        else:
+            self._counts = np.diff(host.a_off).astype(np.int64)
         self._host = host
         self._k_base = self.k
         return host
 
-    def finalize(self) -> dip_arr.DIPArr:
+    def finalize(self):
         """Seal: place the host build on the device (once)."""
         if self._store is None:
-            self._store = dip_arr.to_device(self._build_host(), self.device)
+            self._store = _BUILDERS[self.backend][1](self._build_host(), self.device)
             self._host = None
         return self._store
 
@@ -180,18 +205,33 @@ class _AttrStore:
         return torch.from_numpy(np.stack([self._mask(v) for v in values_list])).to(self.device)
 
     def query_any(self, values: Sequence[str], *, impl: Optional[str] = None) -> torch.Tensor:
-        """(n,) bool — entities holding ANY of ``values``."""
+        """(n,) bool — entities holding ANY of ``values``.  ``impl``: arr
+        ``scan``/``matvec``/``kernel``; listd ``inverted``/``linked``/
+        ``budget``; list has one implementation and ignores it."""
         ids = self.known_ids(values) if len(values) else np.zeros(0, np.int32)
         if ids.size == 0:
             # empty list / all-unknown values: definitionally empty
             return torch.zeros(self.n, dtype=torch.bool, device=self.device)
         store = self.finalize()
+        if self.backend == "listd" and impl == "budget":
+            # the selected segments' total, lane-aligned, at least one tile
+            budget = int(self._counts[ids].sum())
+            budget = max(-(-budget // 128) * 128, 128)
+            return dip_listd.query_any_budget(
+                store, torch.from_numpy(ids).to(self.device), budget=budget)
         mask = torch.from_numpy(self._mask(values)).to(self.device)
-        return dip_arr.query_any(store, mask, impl=impl or "matvec")
+        if self.backend == "arr":
+            return dip_arr.query_any(store, mask, impl=impl or "matvec")
+        if self.backend == "list":
+            return dip_list.query_any(store, mask)
+        return dip_listd.query_any(store, mask, impl=impl or "inverted")
 
     def query_any_batched(self, values_list: Sequence[Sequence[str]], *,
                           impl: Optional[str] = None) -> torch.Tensor:
-        """(Q, n) bool — Q OR-queries in one launch."""
+        """(Q, n) bool — Q OR-queries: one launch on arr, a loop over the
+        queries on list and listd."""
+        if self.backend != "arr":
+            return torch.stack([self.query_any(v, impl=impl) for v in values_list])
         store = self.finalize()
         return dip_arr.query_any_batched(store, self._masks(values_list), impl=impl or "matvec")
 
@@ -218,6 +258,9 @@ class _AttrStore:
 
     def to_arrays(self) -> dict:
         """The sealed store as host arrays (see ``PropGraph.from_arrays``)."""
+        if self.backend != "arr":
+            raise ValueError(f"to_arrays moves DIP-ARR planes; save a {self.backend!r} graph "
+                             "with save_propgraph and reload it with load_propgraph")
         store = self.finalize()
         bm = store.bitmap.cpu().numpy()
         return {"values": self.amap.values, "bitmap": bm.view(np.uint32) if store.packed else bm,
@@ -231,8 +274,6 @@ class PropGraph:
     def __init__(self, backend: str = "arr", mesh=None, *, device=None):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-        if backend != "arr":
-            raise NotImplementedError(f"the {backend!r} backend is not ported yet")
         if mesh is not None:
             raise NotImplementedError("multi-device meshes are not ported yet")
         self.backend = backend
@@ -611,20 +652,23 @@ class PropGraph:
         store's attribute values and plane, the property columns with their
         valid masks.  ``from_arrays`` rebuilds an equal graph from it."""
         g = self._require_graph()
-
-        def cols(kind, props):
-            return {k: (c.cpu().numpy().astype(self._col_dtypes[(kind, k)], copy=False),
-                        v.cpu().numpy()) for k, (c, v) in props.items()}
-
         return {
             "graph": {"src": g.src.cpu().numpy(), "dst": g.dst.cpu().numpy(),
                       "seg": g.seg.cpu().numpy(), "node_map": g.node_map.cpu().numpy(),
                       "n": g.n, "m": g.m, "max_deg": g.max_deg},
             "vstore": self._vstore.to_arrays(),
             "estore": self._estore.to_arrays(),
-            "vertex_props": cols("node", self.vertex_props),
-            "edge_props": cols("edge", self.edge_props),
+            "vertex_props": self.host_columns("node"),
+            "edge_props": self.host_columns("edge"),
         }
+
+    def host_columns(self, kind: str) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+        """``kind`` ("node" or "edge") property columns as host arrays in the
+        type the reference holds them in (a uint32 column held as int64 on
+        the device comes back uint32), with their valid masks."""
+        props = self.vertex_props if kind == "node" else self.edge_props
+        return {k: (c.cpu().numpy().astype(self._col_dtypes[(kind, k)], copy=False),
+                    v.cpu().numpy()) for k, (c, v) in props.items()}
 
     @classmethod
     def from_arrays(cls, arrays: dict, *, device=None) -> "PropGraph":

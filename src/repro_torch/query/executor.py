@@ -277,7 +277,9 @@ def _execute_plan_packed(pg, plan: Plan) -> "MatchResult":
 def execute_plan(pg, plan: Plan) -> "MatchResult":
     """Execute ``plan`` against ``pg``; see the module docstring for stages."""
     pg._require_graph()  # the documented RuntimeError, before store access
-    if pg._vstore.packed and pg._estore.packed:
+    # the packed combine is for arr stores holding word planes; list and
+    # listd stores answer bool masks
+    if pg.backend == "arr" and pg._vstore.packed and pg._estore.packed:
         return _execute_plan_packed(pg, plan)
     label_masks, rel_masks = _materialize(pg, plan, "query_any_batched", "query_any")
     return execute_plan_with_masks(pg, plan, label_masks, rel_masks)

@@ -1,15 +1,34 @@
-"""Port ``repro_torch.core.PropGraph`` (arr, one device) against
+"""Port ``repro_torch.core.PropGraph`` (one device) against
 ``repro.core.PropGraph``: ingest, label/relationship queries, predicate
 masks on int64 and float64 columns, counts, subgraphs and BFS from the same
-seeded raw inputs, bitwise; and ``from_arrays`` fed the reference graph's
-state."""
+seeded raw inputs, bitwise; ``from_arrays`` fed the reference graph's
+state; and on every backend (arr, list, listd) ``chip_smoke.py``'s phase-3
+request kinds, every listd impl, ``explain()`` and the counts."""
+import functools
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import LABELS, RELS, as_np, build_pair, raw_inputs, ref_state
+from _torch_parity import (
+    LABELS,
+    RELS,
+    as_np,
+    assert_same_match,
+    build_pair,
+    ingest,
+    raw_inputs,
+    ref_state,
+)
 from repro_torch.core import PropGraph
 from repro_torch.core import queries as tq
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 
 @pytest.fixture(params=[(0, False), (1, False), (0, True)], ids=["packed0", "packed1", "byte0"])
@@ -221,8 +240,8 @@ def test_from_arrays_of_reference_state(byte):
 
 
 def test_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="list"):
-        PropGraph(backend="list", device="cpu")
+    with pytest.raises(ValueError, match="save_propgraph"):  # planes are arr-only
+        PropGraph(backend="list", device="cpu").add_edges_from([1], [2]).to_arrays()
     with pytest.raises(ValueError, match="backend"):
         PropGraph(backend="nope", device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
@@ -243,3 +262,138 @@ def test_version_and_mutation_hooks():
     pg.add_node_labels([1], ["x"])
     pg.add_node_labels([], [])  # no-op: no bump
     assert seen == [1, 2] and pg.version == 2
+
+
+# ------------------------------------------------------------ every backend
+BACKENDS = ("arr", "list", "listd")
+
+
+def _phase3_raw(seed: int) -> dict:
+    """The parity graph in ``chip_smoke.py``'s vocabulary (labels l0–l3,
+    relationships r0–r2, ages 0–99), so its request kinds apply as written."""
+    raw = raw_inputs(seed)
+    rng = np.random.default_rng(seed + 50)
+    raw["labels"] = rng.choice([f"l{i}" for i in range(4)], size=len(raw["labels"]))
+    raw["rels"] = rng.choice([f"r{i}" for i in range(3)], size=len(raw["rels"]))
+    raw["ages"] = rng.integers(0, 100, len(raw["ages"]))
+    return raw
+
+
+@functools.lru_cache(maxsize=None)
+def _backend_pair(backend: str, seed: int):
+    """(reference PropGraph, port PropGraph on the CPU) on ``backend``."""
+    from repro.core import PropGraph as RefPG
+
+    raw = _phase3_raw(seed)
+    return (ingest(RefPG(backend=backend), raw),
+            ingest(PropGraph(backend=backend, device="cpu"), raw))
+
+
+@pytest.fixture(params=[(b, s) for b in BACKENDS for s in (0, 1)],
+                ids=[f"{b}{s}" for b in BACKENDS for s in (0, 1)])
+def backend_pair(request):
+    return _backend_pair(*request.param)
+
+
+REQUEST_KINDS = chip_smoke.requests(6)
+
+
+@pytest.mark.parametrize("kind, text", REQUEST_KINDS, ids=[k for k, _ in REQUEST_KINDS])
+def test_request_kinds_match_reference_on_every_backend(backend_pair, kind, text):
+    ref, port = backend_pair
+    assert port.explain(text) == ref.explain(text)
+    assert_same_match(ref.match(text), port.match(text))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("impl", ["linked", "inverted", "budget"])
+def test_listd_impls_match_reference(impl, seed):
+    ref, port = _backend_pair("listd", seed)
+    for _, text in REQUEST_KINDS:
+        assert port.explain(text, impl=impl) == ref.explain(text, impl=impl)
+        assert_same_match(ref.match(text, impl=impl), port.match(text, impl=impl))
+    for q in ([], ["nope"], ["l0"], ["l1", "l3"], ["l0", "l1", "l2", "l3"]):
+        np.testing.assert_array_equal(as_np(port.query_labels(q, impl=impl)),
+                                      as_np(ref.query_labels(q, impl=impl)))
+    np.testing.assert_array_equal(as_np(port.query_relationships(["r1", "r2"], impl=impl)),
+                                  as_np(ref.query_relationships(["r1", "r2"], impl=impl)))
+
+
+def test_counts_and_queries_match_reference_on_every_backend(backend_pair):
+    """listd counts keep repeated pairs (its ``a_off``), list and arr count
+    each pair once: the counts, ``nnz`` and the planner's estimates follow."""
+    ref, port = backend_pair
+    assert port.label_counts() == ref.label_counts()
+    assert port.relationship_counts() == ref.relationship_counts()
+    assert (port._vstore.nnz, port._estore.nnz) == (ref._vstore.nnz, ref._estore.nnz)
+    assert port._vstore.packed == ref._vstore.packed
+    batched = [["l0"], ["l1", "l2"], ["nope"], []]
+    np.testing.assert_array_equal(as_np(port._vstore.query_any_batched(batched)),
+                                  as_np(ref._vstore.query_any_batched(batched)))
+    for q in ([], ["l2"], ["l0", "l3"]):
+        np.testing.assert_array_equal(as_np(port.query_labels(q)), as_np(ref.query_labels(q)))
+
+
+def test_listd_counts_keep_repeated_pairs():
+    """A label given twice to one vertex counts twice on listd, once on the
+    others — as in the reference."""
+    from repro.core import PropGraph as RefPG
+
+    for backend, want in (("arr", 1), ("list", 1), ("listd", 2)):
+        graphs = [g.add_edges_from([1, 2], [2, 3]).add_node_labels([1, 1], ["x", "x"])
+                  for g in (RefPG(backend=backend), PropGraph(backend=backend, device="cpu"))]
+        assert graphs[1].label_counts() == graphs[0].label_counts() == {"x": want}
+
+
+@pytest.mark.parametrize("backend", ["list", "listd"])
+def test_words_and_planes_are_arr_only(backend):
+    port = ingest(PropGraph(backend=backend, device="cpu"), _phase3_raw(0))
+    assert not port._vstore.packed and not port._estore.packed
+    with pytest.raises(ValueError, match="packed"):
+        port._vstore.query_any_words(["l0"])
+    with pytest.raises(ValueError, match="packed"):
+        port._estore.query_any_batched_words([["r0"]])
+    with pytest.raises(ValueError, match="save_propgraph"):
+        port.to_arrays()
+
+
+@pytest.mark.parametrize("backend", ["list", "listd"])
+def test_list_graphs_take_the_bool_combine(backend, monkeypatch):
+    """The executor's packed combine is for arr stores only: a list or
+    listd graph takes the bool combine even where its stores would claim
+    packed planes."""
+    from repro_torch.core import property_graph
+    from repro_torch.query import executor
+
+    port = ingest(PropGraph(backend=backend, device="cpu"), _phase3_raw(0))
+    assert not port._vstore.packed and not port._estore.packed
+    ref_res = ingest(PropGraph(backend="arr", device="cpu"), _phase3_raw(0)).match(
+        REQUEST_KINDS[2][1])
+
+    def refuse(*_):
+        raise AssertionError("a list/listd graph took the packed combine")
+
+    monkeypatch.setattr(executor, "_execute_plan_packed", refuse)
+    monkeypatch.setattr(property_graph._AttrStore, "packed", property(lambda self: True))
+    assert_same_match(ref_res, port.match(REQUEST_KINDS[2][1]))
+
+
+@pytest.mark.parametrize("backend", ["list", "listd"])
+def test_sample_on_every_backend_equals_arr(backend):
+    """The same key draws the same blocks whichever store answered the seed
+    pattern and the edge filter."""
+    raw = _phase3_raw(0)
+    arr = ingest(PropGraph(backend="arr", device="cpu"), raw)
+    other = ingest(PropGraph(backend=backend, device="cpu"), raw)
+    for seeds, flt in (("(a:l0)", None), ("(a:l1 {age > 50})", "(a)-[e:r1 {w < 0.5}]->(b)")):
+        want = arr.sample(seeds, [3, 2], key=7, pattern=flt)
+        got = other.sample(seeds, [3, 2], key=7, pattern=flt)
+        assert chip_smoke.same_blocks(got, want)
+        assert any(b.edge_mask.any() for b in got)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_default_device_is_the_card(backend, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PropGraph(backend=backend)
