@@ -77,6 +77,20 @@ none of whose failures is caught:
    in f32; (c) at full width and two layers in f32 against the port on the
    CPU, (d) on that model decode's logits at every position against the
    forward's;
+3f. the frontier and semiring analytics on graph3 (``ANALYTICS``), last of the
+   phase-3 family (see ``run``):
+   ``khop`` (1,024 seeds from ``--seed``, k = 3, ``frontier`` and ``csr``),
+   ``components``, ``shortest_paths`` (weight ``w``), ``pagerank`` (weight
+   ``w``) and ``communities``, unfiltered and under a filter of 25
+   relationships (PageRank: 25 labels), each timed (median of 3 after a
+   warm run) with its relax rounds and whether it reached its cap, and
+   profiled once (busy share, top device ops); the filtered ones must
+   launch B1.  k-hop held bitwise to the CPU port (csr equal to the frontier
+   path), components and shortest paths by certificates and over their
+   first rounds to the CPU port (in full where the host takes at most
+   30 s), PageRank within an L1 distance,
+   communities bitwise at a few rounds; then every request at its full cap
+   on ``graph1`` (100K edges) against the CPU port;
 4. the byte layout (``byte_masks()``): build it and answer a fused pattern,
    which runs the byte kernel; its masks must equal the packed graph's; the
    same request timed warm (median of 5, ``byte_request_ms``);
@@ -145,6 +159,37 @@ BAG_TOL = 1e-5  # card vs CPU context bags (a masked mean summed in another orde
 BF16_FLOP_PER_S = 989e12  # H100 SXM published dense bf16 tensor-core rate
 F32_FLOP_PER_S = 67e12  # H100 SXM published f32 rate outside the tensor cores
 B6_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the reference's flash tolerances (rtol = atol)
+# analytics (phase 3f): 1,024 seeds from --seed, k = 3; the edge filter keeps 25 of the 50
+# relationships (about half the edges), the vertex filter 25 of the 50 labels
+ANALYTICS_SEEDS, ANALYTICS_K = 1024, 3
+ANALYTICS_EDGE_FILTER = "(a)-[:" + "|".join(f"r{i}" for i in range(25)) + "]->(b)"
+ANALYTICS_VERTEX_FILTER = "(a:" + "|".join(f"l{i}" for i in range(25)) + ")"
+ANALYTICS = [  # (request, PropGraph method, filter pattern, other settings)
+    ("khop", "khop", None, {"k": ANALYTICS_K}),
+    ("khop_csr", "khop", None, {"k": ANALYTICS_K, "impl": "csr"}),
+    ("khop_filtered", "khop", ANALYTICS_EDGE_FILTER, {"k": ANALYTICS_K}),
+    ("khop_csr_filtered", "khop", ANALYTICS_EDGE_FILTER, {"k": ANALYTICS_K, "impl": "csr"}),
+    ("components", "components", None, {}),
+    ("components_filtered", "components", ANALYTICS_EDGE_FILTER, {}),
+    ("shortest_paths", "shortest_paths", None, {"weight": "w"}),
+    ("shortest_paths_filtered", "shortest_paths", ANALYTICS_EDGE_FILTER,
+     {"weight": "w", "undirected": True}),
+    ("pagerank", "pagerank", None, {"weight": "w"}),
+    ("pagerank_filtered", "pagerank", ANALYTICS_VERTEX_FILTER, {"weight": "w"}),
+    ("communities", "communities", None, {}),
+]
+# graph3's components and shortest paths are held by certificates and over their first
+# CPU_PROBE_ROUNDS rounds to the CPU port, whose per-round time projects a full CPU run;
+# where that projection is at most CPU_FULL_S, the full answer is held to the CPU port too
+# (on an H100's host components and the filtered shortest paths project 7-12 s, the
+# directed shortest paths, ~370 rounds, 61-72 s: PERF.md §5), and every full answer at
+# graph1.  Communities are held to the CPU port at graph3 at
+# COMMUNITIES_CHECK_ROUNDS rounds (a round sorts 20M keys, seconds on the host) and at the
+# full cap at graph1.
+CPU_PROBE_ROUNDS, CPU_FULL_S, COMMUNITIES_CHECK_ROUNDS = 8, 30.0, 4
+# PageRank: ranks summing to 1 over 8.6M vertices, summed in another order on the card
+# (float atomics) than on the host; f32 rounding leaves an L1 distance ~1e-7
+PR_L1_TOL, PR_SUM_TOL = 1e-5, 1e-4
 # q and k entries of std QK_SCALE give scores (q·k)·D^-0.5 of std 9: they reach the
 # softcap's scale (|s| ~ 20-40 over thousands of keys) and the attention is peaked,
 # so outputs are single V rows rather than the mean of V.  There f32 cases are held
@@ -250,18 +295,22 @@ def time_ms(fn, reps: int = 50) -> float:
 
 
 def on_card(fn, sessions: int = 3):
-    """``fn()`` once under ``torch.profiler``: the events that ran on the
-    card (kernels and copies), most time first, and the window's wall
-    seconds.  Only device-side events are kept: a host op's device time
-    repeats its kernels'.  The profiler on the card's host now and then
-    returns a session without any device event; such a session is reported
-    on stderr and ``fn`` runs again under a new one, up to ``sessions`` in
-    all.  The first session that recorded device events is the one
-    returned, and the caller's checks judge it."""
+    """``fn()`` under ``torch.profiler``: the events that ran on the card
+    (kernels and copies), most time first, and the window's wall seconds.
+    Only device-side events are kept: a host op's device time repeats its
+    kernels'.  The profiler on the card's host loses device records, more
+    often the older the process (``tools/profiler_session_probe.py``: from
+    about 200 s, sessions of one DLRM forward alternate between all and
+    part or none of its kernels), but never adds any.  So ``fn`` runs under
+    a second session and, unless the two recorded the same nonzero number of
+    device events, a third; the session with the most is returned and the
+    caller's checks judge it.  Sessions that disagree are reported on
+    stderr."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    recorded = []
     for session in range(1, sessions + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -271,10 +320,14 @@ def on_card(fn, sessions: int = 3):
             wall_s = time.perf_counter() - t0
         events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                         key=lambda e: e.self_device_time_total, reverse=True)
-        if events:
+        recorded.append((sum(e.count for e in events), events, wall_s))
+        if session >= 2 and recorded[-1][0] == recorded[-2][0] > 0:
             break
-        print(f"on_card: profiler session {session} of {sessions} recorded no device event",
+    counts = [n for n, _, _ in recorded]
+    if len(set(counts)) > 1:
+        print(f"on_card: profiler sessions recorded {counts} device events; the fullest is kept",
               file=sys.stderr, flush=True)
+    _, events, wall_s = max(recorded, key=lambda r: r[0])
     return events, wall_s
 
 
@@ -864,6 +917,222 @@ def stores_phase(pg, reqs, results, seed: int, device: str, sync) -> dict:
     shutil.rmtree(tmp)
     if device == "cuda":
         torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ------------------------------------------------------------- analytics
+def analytics_call(pg, method: str, pattern, settings: dict, seeds, **over):
+    """One phase 3f request on ``pg`` (``over`` overrides its settings)."""
+    kw = {**settings, **over}
+    if method == "khop":
+        return pg.khop(seeds, kw.pop("k"), pattern=pattern, **kw)
+    if method == "shortest_paths":
+        return pg.shortest_paths(seeds, pattern=pattern, **kw)
+    return getattr(pg, method)(pattern=pattern, **kw)
+
+
+def fixed_point_of(step, state):
+    """``state = step(state)`` until nothing changes (the certificates' own
+    closure, with no cap)."""
+    while True:
+        new = step(state)
+        if new.equal(state):
+            return state
+        state = new
+
+
+def check_components_certificate(pg, pattern, labels, what: str) -> None:
+    """Labels are the components of the filtered subgraph: they agree across
+    every active edge, each label is the least id carrying it (no member
+    below it, and its own vertex carries it), and every member is reached
+    from its label's vertex over active edges.  With the first, the last
+    makes each label class connected, so classes are the components."""
+    import torch
+
+    from repro_torch.traverse import frontier_step
+
+    g, v_ok, e_ok, _ = pg._subgraph_filters(pattern)
+    v_ok = torch.ones(g.n, dtype=torch.bool, device=g.device) if v_ok is None else v_ok
+    e_act = torch.ones(g.m, dtype=torch.bool, device=g.device) if e_ok is None else e_ok
+    src, dst = g.src.long(), g.dst.long()
+    e_act = e_act & v_ok[src] & v_ok[dst]
+    lab = labels.long()
+    ids = torch.arange(g.n, device=g.device)
+    check(labels.dtype == torch.int32 and labels.shape == (g.n,), f"{what}: (n,) int32 labels")
+    check(((lab >= 0) == v_ok).all().item(), f"{what}: -1 exactly outside the filter")
+    check((lab[src] == lab[dst])[e_act].all().item(), f"{what}: labels agree across edges")
+    inside = lab[v_ok]
+    check((inside <= ids[v_ok]).all().item() and (lab[inside] == inside).all().item(),
+          f"{what}: each label is the least id carrying it")
+    roots = v_ok & (lab == ids)
+    reached = fixed_point_of(
+        lambda m: m | frontier_step(g, m, e_act, undirected=True), roots)
+    check(reached.equal(v_ok), f"{what}: every member is reached from its label's vertex")
+
+
+def check_distances_certificate(pg, pattern, seeds, dist, undirected: bool, what: str) -> None:
+    """Distances are the least fixed point of the f32 relax from the seeds:
+    seeds at 0, no allowed edge relaxes any distance, and every finite
+    vertex is reached from the seeds over tight allowed edges (an edge whose
+    f32 ``dist[tail] + w`` equals ``dist[head]``).  With weights ≥ 0 the
+    relax is monotone, so such a vector is unique."""
+    import torch
+
+    from repro_torch.traverse import frontier_step
+
+    g, e_ok, direction = pg._step_filter(pattern)
+    tail, head = ((g.src, g.dst) if direction == 1 else (g.dst, g.src))
+    tail, head = tail.long(), head.long()
+    w, e_ok = pg._weighted_edge_filter(e_ok, "w")
+    check(bool((w[e_ok] >= 0).all()), f"{what}: the certificate needs weights >= 0")
+    ew = torch.where(e_ok, w, float("inf"))
+    seed_mask = pg._seed_mask(pg._seed_ids(seeds))
+    check(dist.dtype == torch.float32 and dist.shape == (g.n,), f"{what}: (n,) f32 distances")
+    check((dist[seed_mask] == 0).all().item(), f"{what}: seeds at 0")
+    finite = torch.isfinite(dist)
+    tight = {}
+    for d, (t, h) in ((direction, (tail, head)), (-direction, (head, tail))):
+        if d != direction and not undirected:
+            continue
+        cand = dist[t] + ew
+        check((dist[h] <= cand).all().item(), f"{what}: no allowed edge relaxes a distance")
+        tight[d] = e_ok & (cand == dist[h]) & finite[h]
+    reached = fixed_point_of(
+        lambda m: m | torch.stack([frontier_step(g, m, tm, direction=d)
+                                   for d, tm in tight.items()]).any(0), seed_mask)
+    check(reached.equal(finite), f"{what}: every finite vertex is reached over tight edges")
+
+
+def analytics_at(pg, cpu_pg, seeds) -> dict:
+    """Every ``ANALYTICS`` request on ``pg``, held to ``cpu_pg`` at the
+    full caps (graph1's check): bitwise, PageRank within ``PR_L1_TOL``."""
+    out = {}
+    for name, method, pattern, settings in ANALYTICS:
+        got = analytics_call(pg, method, pattern, settings, seeds)
+        want = analytics_call(cpu_pg, method, pattern, settings, seeds)
+        check(got.shape == want.shape and got.dtype == want.dtype, f"3f graph1 {name}: shape")
+        if method == "pagerank":
+            out[name] = float((got.cpu().double() - want.double()).abs().sum())
+            check(out[name] <= PR_L1_TOL, f"3f graph1 {name}: L1 {out[name]} <= {PR_L1_TOL}")
+        else:
+            check(got.cpu().equal(want), f"3f graph1 {name}: card equals the CPU port")
+            out[name] = "bitwise"
+    return out
+
+
+def analytics_phase(pg, cpu_pg, seed: int, device: str, sync) -> dict:
+    """Phase 3f (module docstring): the frontier and semiring analytics at
+    ``pg``'s scale; ``cpu_pg`` is the same graph on the CPU."""
+    import torch
+
+    from repro_torch.core import PropGraph
+    from repro_torch.graph.generators import PAPER_GRAPHS, random_uniform_graph
+    from repro_torch.kernels.bitmap_query import ops
+    from repro_torch.traverse import engine
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 11)
+    seeds = rng.choice(pg.graph.node_map.cpu().numpy(), ANALYTICS_SEEDS, replace=False)
+    out = {"requests": {}}
+    answers = {}
+    for name, method, pattern, settings in ANALYTICS:
+        def run():
+            return analytics_call(pg, method, pattern, settings, seeds)
+
+        ops.reset_launches()
+        run()  # warm
+        sync()
+        times = []
+        for _ in range(3):
+            engine.reset_rounds()
+            t0 = time.perf_counter()
+            answers[name] = run()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        req = {"median_ms": statistics.median(times), "ms": times,
+               "rounds": dict(engine.rounds), "capped": dict(engine.capped),
+               "b1_launches": ops.launches[ops.PACKED]}
+        if device == "cuda":
+            if pattern is not None:
+                check(req["b1_launches"] > 0, f"3f: {name} launched B1 for its filter")
+            events, wall_s = on_card(run)
+            device_s = sum(e.self_device_time_total for e in events) / 1e6
+            req["busy_share"] = device_s / wall_s if device_s else "not measured"
+            req["top_ms"] = [(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                             for e in events[:8]]
+        out["requests"][name] = req
+    out["b1_launches"] = sum(r["b1_launches"] for r in out["requests"].values())
+    reqs = {name: (method, pattern, settings) for name, method, pattern, settings in ANALYTICS}
+
+    def cpu_answer(name, **over):
+        method, pattern, settings = reqs[name]
+        return analytics_call(cpu_pg, method, pattern, settings, seeds, **over)
+
+    # k-hop: every variant bitwise against the CPU port; csr equals the frontier path
+    for name in ("khop", "khop_csr", "khop_filtered", "khop_csr_filtered"):
+        check(answers[name].dtype == torch.bool and answers[name].shape == (pg.n_vertices,),
+              f"3f: {name} is an (n,) bool mask")
+        check(answers[name].cpu().equal(cpu_answer(name)), f"3f: {name} equals the CPU port")
+    check(answers["khop_csr"].equal(answers["khop"])
+          and answers["khop_csr_filtered"].equal(answers["khop_filtered"]),
+          "3f: csr k-hop equals the frontier path")
+    # components and shortest paths: certificates (none holds where a cap was
+    # reached), the first CPU_PROBE_ROUNDS rounds against the CPU port, and the full
+    # answer too where the probe projects at most CPU_FULL_S on the host
+    for name in ("components", "components_filtered", "shortest_paths",
+                 "shortest_paths_filtered"):
+        method, pattern, settings = reqs[name]
+        req = out["requests"][name]
+        req["check"] = []
+        if not req["capped"]:
+            if method == "components":
+                check_components_certificate(pg, pattern, answers[name], f"3f: {name}")
+            else:
+                check_distances_certificate(pg, pattern, seeds, answers[name],
+                                            settings.get("undirected", False), f"3f: {name}")
+            req["check"].append("certificate")
+        engine.reset_rounds()
+        t0 = time.perf_counter()
+        want = cpu_answer(name, max_iters=CPU_PROBE_ROUNDS)
+        cpu_s = time.perf_counter() - t0
+        cpu_rounds = engine.rounds[method]
+        check(analytics_call(pg, method, pattern, settings, seeds,
+                             max_iters=CPU_PROBE_ROUNDS).cpu().equal(want),
+              f"3f: {name} at {CPU_PROBE_ROUNDS} rounds equals the CPU port")
+        req["cpu_probe"] = {"rounds": cpu_rounds, "s": cpu_s,
+                            "projected_full_s": cpu_s / cpu_rounds * req["rounds"][method]}
+        req["check"].append(f"cpu port over {CPU_PROBE_ROUNDS} rounds")
+        if req["capped"] or req["cpu_probe"]["projected_full_s"] <= CPU_FULL_S:
+            t0 = time.perf_counter()
+            check(answers[name].cpu().equal(cpu_answer(name)), f"3f: {name} equals the CPU port")
+            req["cpu_probe"]["full_s"] = time.perf_counter() - t0
+            req["check"].append("cpu port")
+    # PageRank within PR_L1_TOL of the CPU port; unfiltered ranks sum to 1
+    for name in ("pagerank", "pagerank_filtered"):
+        got = answers[name]
+        check(got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+              f"3f: {name} finite f32")
+        l1 = float((got.cpu().double() - cpu_answer(name).double()).abs().sum())
+        check(l1 <= PR_L1_TOL, f"3f: {name} L1 distance {l1} to the CPU port <= {PR_L1_TOL}")
+        out["requests"][name]["check"] = {"l1_to_cpu": l1,
+                                          "sum": float(got.double().sum())}
+    check(abs(out["requests"]["pagerank"]["check"]["sum"] - 1.0) <= PR_SUM_TOL,
+          "3f: unfiltered ranks sum to 1")
+    # communities: at COMMUNITIES_CHECK_ROUNDS rounds against the CPU port
+    got = analytics_call(pg, "communities", None, {}, seeds, max_iters=COMMUNITIES_CHECK_ROUNDS)
+    check(got.cpu().equal(cpu_answer("communities", max_iters=COMMUNITIES_CHECK_ROUNDS)),
+          f"3f: communities at {COMMUNITIES_CHECK_ROUNDS} rounds equal the CPU port")
+    out["requests"]["communities"]["check"] = f"cpu port at {COMMUNITIES_CHECK_ROUNDS} rounds"
+    # graph1: every request at its full cap against the CPU port
+    src1, dst1 = random_uniform_graph(PAPER_GRAPHS["graph1"], seed=seed)
+    g1, _ = build_graph(src1, dst1, seed, device)
+    g1_cpu = PropGraph.from_arrays(g1.to_arrays(), device="cpu")
+    seeds1 = np.random.default_rng(seed + 11).choice(g1.graph.node_map.cpu().numpy(),
+                                                     ANALYTICS_SEEDS, replace=False)
+    out["graph1"] = {"n": g1.n_vertices, "m": g1.n_edges,
+                     "check": analytics_at(g1, g1_cpu, seeds1)}
+    del g1, g1_cpu
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -2200,7 +2469,6 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
     # --- phase 3b: sampling on the same graph
     sampled = sampling_phase(pg, cpu_pg, seed, device, sync)
     out["sample"] = sampled["requests"]
-    del cpu_pg
     print("phase 3b timings", json.dumps({k: (v["median_ms"], v["b3_launches"])
                                           for k, v in out["sample"].items()}), flush=True)
     print("phase 3b ok: every layer passes check_sample and equals the CPU port bit for bit",
@@ -2244,6 +2512,27 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
           json.dumps({"b": out["lm"]["check_b"], "c": out["lm"]["check_c"],
                       "d": out["lm"]["check_d"]}), flush=True)
 
+    # --- phase 3f: the frontier and semiring analytics, on the same graph and its CPU twin.
+    # It runs after 3e: placed before 3b it aged the process by its minute or two, and on
+    # the card's host the profiler loses more device records the older the process
+    # (on_card), enough that phase 3d's DLRM session lost B4's kernel in 6 of 9 runs on an
+    # H100 (PERF.md §7).
+    out["analytics"] = analytics_phase(pg, cpu_pg, seed, device, sync)
+    print("phase 3f timings", json.dumps({
+        "phase_s": out["analytics"]["phase_s"],
+        **{k: (v["median_ms"], v["rounds"], v["capped"], v.get("busy_share"))
+           for k, v in out["analytics"]["requests"].items()}}), flush=True)
+    print("phase 3f ok: k-hop (both impls) and communities equal the CPU port bit for bit;",
+          "components and shortest paths hold their certificates and equal the CPU port over",
+          CPU_PROBE_ROUNDS, "rounds (in full where it takes at most", CPU_FULL_S, "s);",
+          "PageRank within", PR_L1_TOL, "(L1); graph1 at the full caps equals the CPU port",
+          json.dumps({"b1_launches": out["analytics"]["b1_launches"],
+                      "checks": {k: out["analytics"]["requests"][k]["check"]
+                                 for k in ("components", "components_filtered", "shortest_paths",
+                                           "shortest_paths_filtered")},
+                      "graph1": out["analytics"]["graph1"]}), flush=True)
+    del cpu_pg
+
     # --- phase 4: the byte layout
     ops.reset_launches()
     with bitplane.byte_masks():
@@ -2278,7 +2567,9 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
         plane = pg._vstore.finalize().bitmap
         bitmap = pgb._vstore.finalize().bitmap
         b1 = bitmap_query_entry("bitmap_query_packed (B1)", plane, masks,
-                                main_launches[ops.PACKED])
+                                main_launches[ops.PACKED] + out["analytics"]["b1_launches"])
+        b1["launches_by_path"] = {"match": main_launches[ops.PACKED],
+                                  "analytics": out["analytics"]["b1_launches"]}
         b2 = bitmap_query_entry("bitmap_query_byte (B2)", bitmap, masks,
                                 byte_launches[ops.BYTE])
         check(b1["max_abs_err"] == 0 and b2["max_abs_err"] == 0, "timed kernels exact")

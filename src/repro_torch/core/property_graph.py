@@ -18,10 +18,12 @@ the chosen DIP backend, which seals at its first query.  Backends: ``arr``
 chains + inverted CSR).  ``core/io.py`` saves a graph and loads it under
 any backend.
 
-This port covers one device: ingest, ``match()`` and ``sample()`` on
-every backend.  Meshes, the overlay (writes after a store sealed,
-deletes, snapshots, forks, compaction) and the frontier analytics are not
-ported yet and raise ``NotImplementedError``.
+This port covers one device: ingest, ``match()``, ``sample()`` and the
+frontier analytics (``khop``, ``components``, ``shortest_paths``,
+``pagerank``, ``communities``) on every backend.  Meshes, the overlay
+(writes after a store sealed, deletes, snapshots, forks, compaction) and
+the observability layer are not ported yet and raise
+``NotImplementedError``.
 
 ``device=None`` means the CUDA card; with no card that raises
 ``RuntimeError`` instead of quietly running on the CPU.  Pass
@@ -39,7 +41,12 @@ from repro_torch.core import bitplane, dip_arr, dip_list, dip_listd
 from repro_torch.core.attr_map import AttributeMap
 from repro_torch.core.device import resolve_device
 from repro_torch.core.di import DIGraph, build_di, edge_lookup
-from repro_torch.core.queries import extract_subgraph, filtered_bfs, induce_edge_mask
+from repro_torch.core.queries import (
+    extract_subgraph,
+    filtered_bfs,
+    gather,
+    induce_edge_mask,
+)
 
 __all__ = ["PropGraph", "BACKENDS", "resolve_device"]
 
@@ -520,6 +527,67 @@ class PropGraph:
         srcs = torch.from_numpy(np.maximum(self._vertex_internal(sources), 0)).to(g.device)
         return filtered_bfs(g, srcs, edge_allowed=e_ok, vertex_allowed=v_ok, max_iters=max_iters)
 
+    # -------------------------------------------------- frontier analytics
+    # The reference also records each run for the observability layer
+    # (``_obs_traverse``) and runs sharded under a mesh; both wait for their
+    # ports.
+    def khop(self, seeds, k: int, *, pattern=None, undirected: bool = False,
+             impl: Optional[str] = None) -> torch.Tensor:
+        """Vertices within ≤``k`` hops of ``seeds`` (original ids), following
+        only edges the filter ``pattern`` allows — (n,) bool, seeds included.
+
+        ``pattern`` is a node-only or single-hop filter (the same §VI masks
+        ``match`` composes): for ``"(a:host)-[:flows {bytes > 0}]->(b)"``
+        an edge is traversable iff it holds ``flows``, satisfies the
+        predicate, its tail matches ``a`` and its head matches ``b``;
+        ``<-[...]-`` walks edges in reverse; a node-only pattern confines
+        the traversal to matching vertices.  ``None`` allows everything.
+
+        ``impl``: ``None``/``"frontier"`` = the edge-centric Boolean step;
+        ``"csr"`` = the CSR gather of each new frontier's windows (forward
+        and directed only; degrades to ``frontier`` otherwise).  Both are
+        bitwise identical.
+        """
+        from repro_torch import traverse
+
+        if impl not in (None, "frontier", "csr"):
+            raise ValueError(f"unknown impl {impl!r}")
+        g, e_ok, direction = self._step_filter(pattern)
+        ids = self._seed_ids(seeds)
+        # a combined base++delta view of the overlay has no SEG windows and
+        # will degrade csr to the frontier step too
+        if impl == "csr" and direction == 1 and not undirected:
+            return traverse.khop_csr(g, ids, e_ok, k=k)
+        return traverse.khop_mask(g, self._seed_mask(ids), e_ok, k=k,
+                                  direction=direction, undirected=undirected)
+
+    def _step_filter(self, pattern):
+        """(graph, edge filter, direction) of a walk whose every step the
+        single-hop ``pattern`` constrains: its edge masks AND the masks of
+        the hop's tail and head (in traversal order) at the edge's ends."""
+        from repro_torch import traverse
+
+        g = self._require_graph()
+        v_tail, v_head, e_mask, direction = traverse.single_hop_filters(self, pattern)
+        e_ok = torch.ones(g.m, dtype=torch.bool, device=g.device) if e_mask is None else e_mask
+        tail, head = (g.src, g.dst) if direction == 1 else (g.dst, g.src)
+        if v_tail is not None:
+            e_ok = e_ok & gather(v_tail, tail)
+        if v_head is not None:
+            e_ok = e_ok & gather(v_head, head)
+        # the overlay's alive edge mask ANDs in here
+        return g, e_ok, direction
+
+    def _seed_ids(self, seeds) -> np.ndarray:
+        """Internal ids of the seeds the graph knows (the others drop out)."""
+        ids = self._vertex_internal(seeds)
+        # the overlay's dead seeds drop out here too
+        return ids[ids >= 0]
+
+    def _seed_mask(self, ids: np.ndarray) -> torch.Tensor:
+        g = self.graph
+        return dip_list.mark(torch.from_numpy(ids.astype(np.int64)).to(g.device), g.n, g.device)
+
     # ---------------------------------------------------- fused sampling
     def _sampling_view(self):
         """(seg, dst, max_deg, perm) windows for the current graph.  Without
@@ -646,6 +714,104 @@ class PropGraph:
         return self._sample_rest(frontier, nbrs0, mask0, fanouts, base,
                                  seg, dstv, max_deg, ew_words)
 
+    def components(self, pattern=None, *, max_iters: int = 128) -> torch.Tensor:
+        """Connected components of the subgraph the filter ``pattern``
+        allows — (n,) int32 labels (component id = smallest member vertex
+        id, internal numbering), -1 for vertices outside the filter.
+
+        Edges count as undirected; an edge participates iff it satisfies
+        the pattern's relationship/predicate masks AND both endpoints
+        match their node constraints.  Vertices matching either endpoint
+        constraint participate (isolated ones form singletons).  ``None``
+        = plain structural components.
+        """
+        from repro_torch import traverse
+
+        g, v_ok, e_ok, _ = self._subgraph_filters(pattern)
+        return traverse.components_masked(g, v_ok, e_ok, max_iters=max_iters)
+
+    def _weighted_edge_filter(self, e_ok, weight: Optional[str]):
+        """Fold a numeric edge-property column into a traversal: (f32
+        weights or None, the edge filter with the column's validity mask
+        ANDed in).  An edge without the property is NOT traversable under
+        a weighted semiring — there is no sound default weight."""
+        if weight is None:
+            return None, e_ok
+        from repro_torch.query.weights import edge_weight_values
+
+        w, wvalid = edge_weight_values(self, weight)
+        return w, (wvalid if e_ok is None else e_ok & wvalid)
+
+    def shortest_paths(self, seeds, *, weight: Optional[str] = None, pattern=None,
+                       undirected: bool = False,
+                       max_iters: Optional[int] = None) -> torch.Tensor:
+        """Multi-source shortest-path distances from ``seeds`` (original
+        ids) over the (min, +) tropical semiring — (n,) f32, 0.0 at the
+        seeds, +inf where unreachable.
+
+        ``weight`` names a numeric edge property; edges without it do not
+        participate (``None`` = unit weights, hop counts).  ``pattern`` is
+        the single-hop filter ``khop`` takes: it constrains each STEP of
+        the walk (relationship, predicates, endpoint labels, ``<-[...]-``
+        direction); the fixed point supplies the path structure."""
+        from repro_torch import traverse
+
+        g, e_ok, direction = self._step_filter(pattern)
+        w, e_ok = self._weighted_edge_filter(e_ok, weight)
+        return traverse.shortest_paths_masked(g, self._seed_mask(self._seed_ids(seeds)), w, e_ok,
+                                              direction=direction, undirected=undirected,
+                                              max_iters=max_iters)
+
+    def _subgraph_filters(self, pattern):
+        """Whole-subgraph mask composition shared by the components-shaped
+        analytics: pattern endpoint masks gate edges AND define vertex
+        membership (either endpoint constraint admits a vertex)."""
+        from repro_torch import traverse
+
+        g = self._require_graph()
+        v_tail, v_head, e_mask, direction = traverse.single_hop_filters(self, pattern)
+        tail, head = (g.src, g.dst) if direction == 1 else (g.dst, g.src)
+        e_ok, v_ok = e_mask, None
+        if v_tail is not None or v_head is not None:
+            ones = torch.ones(g.n, dtype=torch.bool, device=g.device)
+            vt = ones if v_tail is None else v_tail
+            vh = ones if v_head is None else v_head
+            em = torch.ones(g.m, dtype=torch.bool, device=g.device) if e_ok is None else e_ok
+            e_ok = em & gather(vt, tail) & gather(vh, head)
+            v_ok = vt | vh
+        # the overlay's alive edge and vertex masks AND in here
+        return g, v_ok, e_ok, direction
+
+    def pagerank(self, *, pattern=None, weight: Optional[str] = None, damping: float = 0.85,
+                 iters: int = 20) -> torch.Tensor:
+        """PageRank on the subgraph the filter ``pattern`` allows — (n,) f32
+        ranks, 0.0 for vertices outside the filter.
+
+        The (+, ×) semiring instance: per-iteration contributions
+        ``rank/out_degree`` flow along allowed edges (``weight`` scales
+        them per edge; edges without the property drop out), teleport and
+        dangling mass redistribute over the allowed vertex count.  With no
+        filter this is the classic §I kernel (``graph.pagerank``)."""
+        from repro_torch import traverse
+
+        g, v_ok, e_ok, direction = self._subgraph_filters(pattern)
+        w, e_ok = self._weighted_edge_filter(e_ok, weight)
+        return traverse.pagerank_masked(g, v_ok, e_ok, w, damping=damping, iters=iters,
+                                        direction=direction)
+
+    def communities(self, pattern=None, *, max_iters: int = 64) -> torch.Tensor:
+        """Community labels by synchronous label propagation on the
+        subgraph the filter ``pattern`` allows — (n,) int32 (label = a
+        member vertex id, internal numbering), -1 outside the filter.
+
+        Most frequent neighbor label, smallest wins ties; edges count as
+        undirected, exactly ``components``' participation rule.  All
+        integer, so the result is exact."""
+        from repro_torch import traverse
+
+        g, v_ok, e_ok, _ = self._subgraph_filters(pattern)
+        return traverse.label_propagation_masked(g, v_ok, e_ok, max_iters=max_iters)
+
     # ------------------------------------------------------- state transfer
     def to_arrays(self) -> dict:
         """The graph's state as host arrays: the DI fields, each sealed
@@ -735,8 +901,6 @@ def _not_ported(name: str, part: str):
 
 
 for _part, _names in (
-    ("the frontier analytics", ("khop", "components", "shortest_paths", "pagerank",
-                                "communities")),
     ("the overlay", ("insert_edges", "delete_vertices", "delete_edges",
                      "update_node_properties", "update_edge_properties", "snapshot",
                      "fork", "compact")),

@@ -1,6 +1,6 @@
-"""repro_torch.graph — graph substrate: segment ops, generators, sampling.
-The analytics aliases (``algorithms.py``, ``typed_algorithms.py``) wait for
-the frontier and semiring engine."""
+"""repro_torch.graph — graph substrate: segment ops, generators, sampling,
+analytics."""
+from repro_torch.graph.algorithms import connected_components, pagerank, triangle_count
 from repro_torch.graph.generators import (
     PAPER_GRAPHS,
     attach_random_attributes,
@@ -26,6 +26,9 @@ from repro_torch.graph.segment_ops import (
 )
 
 __all__ = [
+    "connected_components",
+    "pagerank",
+    "triangle_count",
     "PAPER_GRAPHS",
     "attach_random_attributes",
     "paper_graph",

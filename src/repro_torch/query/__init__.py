@@ -9,6 +9,7 @@ from repro_torch.query.executor import MatchResult, execute_plan, execute_plan_w
 from repro_torch.query.parser import ParseError, parse
 from repro_torch.query.plan import MaskStep, Plan, PredicateStep
 from repro_torch.query.planner import plan_pattern
+from repro_torch.query.weights import edge_weight_values
 
 __all__ = [
     "Pattern",
@@ -24,4 +25,5 @@ __all__ = [
     "MatchResult",
     "execute_plan",
     "execute_plan_with_masks",
+    "edge_weight_values",
 ]

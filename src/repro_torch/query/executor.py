@@ -84,8 +84,13 @@ class MatchResult:
         return extract_subgraph(g, self.edge_mask)
 
     def expand(self, g: DIGraph, k: int, *, edge_allowed=None):
-        raise NotImplementedError("MatchResult.expand needs the graph algorithms, "
-                                  "which are not ported yet")
+        """NScale-style neighborhood expansion: vertices within ``k`` hops of
+        the match, following ``edge_allowed`` (default: every edge)."""
+        from repro_torch.graph.typed_algorithms import khop_typed
+
+        allowed = (torch.ones(g.m, dtype=torch.bool, device=g.device) if edge_allowed is None
+                   else edge_allowed)
+        return khop_typed(g, torch.nonzero(self.vertex_mask).flatten(), allowed, k=k)
 
 
 def _propagate(g: DIGraph, cands, emasks, hops: Tuple[Tuple[int, int, int], ...]):

@@ -1,15 +1,42 @@
-"""repro_torch.traverse — the Boolean frontier engine the pattern executor
-runs (frontier step, ≤k-hop expansion, fixed-point closure), and the
-single-hop pattern filter that sampling uses."""
-from repro_torch.traverse.analytics import single_hop_filters
+"""repro_torch.traverse — the semiring frontier engine: one masked relax,
+generalized over a semiring (⊕ combine, ⊗ extend), that the pattern
+executor's variable-length hops, ``PropGraph.khop`` / ``components`` and the
+numeric analytics (``shortest_paths`` / ``pagerank`` / ``communities``) all
+run through, and a CSR small-frontier fast path for k-hop."""
+from repro_torch.traverse.analytics import (
+    components_masked,
+    label_propagation_masked,
+    pagerank_masked,
+    shortest_paths_masked,
+    single_hop_filters,
+)
 from repro_torch.traverse.engine import (
     BOOLEAN,
+    COUNTING,
+    MINLABEL,
+    TROPICAL,
     Semiring,
     frontier_step,
+    khop_csr,
     khop_mask,
     reach_closure,
     semiring_relax,
 )
 
-__all__ = ["Semiring", "BOOLEAN", "semiring_relax", "frontier_step",
-           "khop_mask", "reach_closure", "single_hop_filters"]
+__all__ = [
+    "Semiring",
+    "BOOLEAN",
+    "TROPICAL",
+    "COUNTING",
+    "MINLABEL",
+    "semiring_relax",
+    "frontier_step",
+    "khop_mask",
+    "khop_csr",
+    "reach_closure",
+    "components_masked",
+    "shortest_paths_masked",
+    "pagerank_masked",
+    "label_propagation_masked",
+    "single_hop_filters",
+]

@@ -1,37 +1,73 @@
-"""Frontier engine — Boolean frontier expansion over DI.
+"""Frontier engine — semiring frontier expansion over DI.
 
-The part of the semiring frontier engine the pattern executor runs: the
-(OR, AND) :data:`BOOLEAN` relax, one frontier step, ≤k-hop expansion and
-the fixed-point closure behind unbounded ``*`` hops.  The other semirings
-and the analytics built on them are not ported yet.
+One primitive unifies the query executor's chain propagation and the
+frontier analytics: a per-vertex value vector crossed with a (possibly
+masked or weighted) edge set gives the next value vector, under a
+:class:`Semiring` — ⊕ combines the messages arriving at a vertex, ⊗
+extends a vertex value along an edge.  Everything here is a client of
+:func:`semiring_relax`:
+
+  * ``frontier_step``   — the (OR, AND) Boolean instance: heads of allowed
+    edges whose tail is in the frontier.
+  * ``khop_mask``       — union of ≤k Boolean expansions, with early exit.
+  * ``reach_closure``   — expansion to a fixed point (the ``*`` pattern
+    hop; bounded by ``n`` rounds).
+  * ``khop_csr``        — the CSR fast path: each BFS level gathers only
+    the new frontier's adjacency windows off ``seg``/``dst`` (Σ deg of
+    the frontier edges a level instead of m); bitwise equal to
+    ``khop_mask``.
+
+Every fixed point runs as a Python loop that reads one flag back to the
+host per round (the reference runs one device-side while loop with
+``cond = changed & (it < cap)``; the caps are kept exactly: a cap is part
+of the answer).  ``rounds`` counts the rounds each loop ran, summed over
+calls since ``reset_rounds()``, and ``capped`` the calls that stopped at
+their cap with the state still changing.
+
+The Boolean, tropical and min-label instances are exact (idempotent ⊕);
+the counting (+, ×) instance sums floats, whose order ``index_add_`` does
+not fix on the card, so it agrees with the reference within a tolerance.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.di import DIGraph
+from repro_torch.core.dip_list import mark, scatter_ids
 from repro_torch.core.queries import gather, scatter_or
+from repro_torch.kernels.seg_mm.ref import gather_ids
 
 __all__ = [
     "Semiring",
     "BOOLEAN",
+    "TROPICAL",
+    "COUNTING",
+    "MINLABEL",
     "semiring_relax",
     "frontier_step",
     "khop_mask",
     "reach_closure",
+    "khop_csr",
+    "rounds",
+    "capped",
+    "reset_rounds",
 ]
+
+_I32_MAX = int(np.iinfo(np.int32).max)
 
 
 @dataclasses.dataclass(frozen=True)
 class Semiring:
     """One relax algebra: ⊕ combines messages at a vertex, ⊗ extends a
-    vertex value along an edge; ``zero`` is the ⊕ identity and ⊗ absorber."""
+    vertex value along an edge.  ``zero`` is the ⊕ identity and the ⊗
+    absorber, so an all-``zero`` relax input is a fixed point."""
 
     name: str
-    zero: object
+    zero: object  # ⊕ identity / ⊗ absorber (False, +inf, 0.0, INT32_MAX)
     scatter: str  # the ⊕ scatter combine: "max" | "min" | "add"
     extend: Callable  # ⊗: (tail value, edge value) → message
 
@@ -39,16 +75,87 @@ class Semiring:
 # (OR, AND) over bool — reachability.
 BOOLEAN = Semiring("boolean", False, "max", lambda x, w: x & w)
 
+# (min, +) over f32 — weighted shortest paths.  A masked edge carries +inf.
+TROPICAL = Semiring("tropical", float("inf"), "min", lambda x, w: x + w)
+
+# (+, ×) over f32 — weighted SpMV, the PageRank contribution step.
+COUNTING = Semiring("counting", 0.0, "add", lambda x, w: x * w)
+
+# (min, select) over int32 — the component min-hook: an allowed edge
+# forwards the tail's label, a masked edge the identity.
+MINLABEL = Semiring("minlabel", _I32_MAX, "min",
+                    lambda x, w: torch.where(w, x, _I32_MAX))
+
+rounds: Dict[str, int] = {}
+capped: Dict[str, int] = {}
+
+
+def reset_rounds() -> None:
+    rounds.clear()
+    capped.clear()
+
+
+def _fixed_point(name: str, step: Callable, state: torch.Tensor, cap: int) -> torch.Tensor:
+    """``state = step(state)`` until a round changes nothing or ``cap``
+    rounds ran; one flag read back per round.  ``!=`` counts a NaN as a
+    change, as the reference's loop does."""
+    it, changed = 0, True
+    while changed and it < cap:
+        new = step(state)
+        changed = bool((new != state).any())
+        state = new
+        it += 1
+    rounds[name] = rounds.get(name, 0) + it
+    if changed:
+        capped[name] = capped.get(name, 0) + 1
+    return state
+
 
 def _ends(g: DIGraph, direction: int):
     """(tail, head) endpoint arrays: +1 follows src→dst, -1 walks dst→src."""
     return (g.src, g.dst) if direction == 1 else (g.dst, g.src)
 
 
+def _ends64(g: DIGraph, direction: int):
+    """:func:`_ends` widened to int64 (``scatter_reduce_`` takes no other
+    index type): loops widen once per call, not once per round."""
+    tail, head = _ends(g, direction)
+    return tail.long(), head.long()
+
+
 def _all_edges(g: DIGraph, edge_allowed) -> torch.Tensor:
     if edge_allowed is None:
         return torch.ones(g.m, dtype=torch.bool, device=g.device)
     return edge_allowed
+
+
+def _scatter(sr: Semiring, out: torch.Tensor, head: torch.Tensor, msg: torch.Tensor,
+             nan_exact: bool) -> torch.Tensor:
+    """``out[head[e]] ⊕= msg[e]`` in place, ⊕ a sum or a min.  ``nan_exact``: a NaN message
+    makes its head NaN, as the reference's scatter-min does; the card's
+    atomic min may drop NaNs, so they are scattered apart."""
+    if sr.scatter == "add":
+        return out.index_add_(0, head, msg)
+    if not nan_exact:
+        return out.scatter_reduce_(0, head.long(), msg, "amin", include_self=True)
+    nan = torch.isnan(msg)
+    out.scatter_reduce_(0, head.long(), msg.masked_fill(nan, float("inf")), "amin",
+                        include_self=True)
+    return out.masked_fill_(scatter_or(head, nan, out.shape[0]), float("nan"))
+
+
+def _relax(tail, head, n: int, x, edge_vals, sr: Semiring, undirected: bool,
+           nan_exact: bool = False) -> torch.Tensor:
+    if sr.scatter == "max":  # max over bool: OR
+        out = scatter_or(head, sr.extend(gather(x, tail), edge_vals), n)
+        if undirected:
+            out = out | scatter_or(tail, sr.extend(gather(x, head), edge_vals), n)
+        return out
+    out = torch.full_like(x, sr.zero)
+    _scatter(sr, out, head, sr.extend(gather(x, tail), edge_vals), nan_exact)
+    if undirected:
+        _scatter(sr, out, tail, sr.extend(gather(x, head), edge_vals), nan_exact)
+    return out
 
 
 def semiring_relax(
@@ -61,16 +168,14 @@ def semiring_relax(
     undirected: bool = False,
 ) -> torch.Tensor:
     """ONE edge-centric relax: ``out[v] = ⊕_{(u→v)} x[u] ⊗ w[e]``; vertices
-    with no incoming message hold ``sr.zero``.  ``undirected`` relaxes every
-    edge in reverse into the same output too.  Only :data:`BOOLEAN` is
-    ported; its ⊕ (max over bool) is a scatter-OR."""
-    if sr is not BOOLEAN:
-        raise NotImplementedError(f"semiring {sr.name!r} is not ported yet")
+    with no incoming message hold ``sr.zero``.  The result does not include
+    the input values.  ``undirected`` relaxes every edge in reverse into the
+    same output too.  ⊕ is a scatter-OR for :data:`BOOLEAN`,
+    ``scatter_reduce_`` ("amin") for the min semirings and ``index_add_``
+    for :data:`COUNTING`."""
     tail, head = _ends(g, direction)
-    out = scatter_or(head, sr.extend(gather(x, tail), edge_vals), g.n)
-    if undirected:
-        out = out | scatter_or(tail, sr.extend(gather(x, head), edge_vals), g.n)
-    return out
+    return _relax(tail, head, g.n, x, edge_vals, sr, undirected,
+                  nan_exact=x.is_floating_point())
 
 
 def frontier_step(
@@ -97,19 +202,12 @@ def khop_mask(
     undirected: bool = False,
 ) -> torch.Tensor:
     """Vertices within ≤k allowed hops of the seeds (seeds included), with
-    early exit once the mask stops growing.  The exit test reads one flag
-    back to the host per round (``any(new != mask)``): the price of a
-    Python loop in place of a device-side while loop."""
+    early exit once the mask stops growing."""
     e_ok = _all_edges(g, edge_allowed)
-    mask = seed_mask
-    for _ in range(k):
-        new = mask | frontier_step(g, mask, e_ok, direction=direction,
-                                   undirected=undirected)
-        changed = bool((new != mask).any())
-        mask = new
-        if not changed:
-            break
-    return mask
+    return _fixed_point(
+        "khop", lambda mask: mask | frontier_step(g, mask, e_ok, direction=direction,
+                                                  undirected=undirected),
+        seed_mask, k)
 
 
 def reach_closure(
@@ -127,3 +225,67 @@ def reach_closure(
     bound = (g.n + 1) if max_iters is None else max_iters
     return khop_mask(g, seed_mask, edge_allowed, k=bound,
                      direction=direction, undirected=undirected)
+
+
+# ------------------------------------------------------------- CSR fast path
+def _csr_step(g: DIGraph, reached: torch.Tensor, frontier: torch.Tensor,
+              e_ok: torch.Tensor, max_deg: int) -> torch.Tensor:
+    """Gather exactly the adjacency windows of ``frontier`` (int64 ids) and
+    mark the allowed neighbors in ``reached``.  Window bounds are read off
+    ``seg`` as the reference reads them (an id in [-(n+1), -1] wraps, the
+    rest clamp), at most ``max_deg`` lanes a window."""
+    n = g.n
+    start = gather(g.seg, gather_ids(frontier, n + 1)).long()
+    end = gather(g.seg, gather_ids(torch.clamp(frontier + 1, max=n), n + 1)).long()
+    deg = (end - start).clamp_(0, max_deg)
+    total = int(deg.sum())  # the level's one extra host read: the gather's size
+    if total == 0:
+        return reached
+    owner = torch.repeat_interleave(torch.arange(deg.shape[0], device=deg.device), deg,
+                                    output_size=total)
+    first = torch.cumsum(deg, 0) - deg  # each window's first lane
+    eidx = start[owner] + torch.arange(total, device=deg.device) - first[owner]
+    nbr = torch.where(gather(e_ok, eidx), gather(g.dst, eidx).long(), n)
+    return reached | mark(nbr, n, reached.device)  # disallowed lanes land in row n, dropped
+
+
+def khop_csr(
+    g: DIGraph,
+    seed_ids,
+    edge_allowed: Optional[torch.Tensor] = None,
+    *,
+    k: int,
+    max_deg: Optional[int] = None,
+) -> torch.Tensor:
+    """CSR-gather k-hop: BFS levels, each expanding only the NEW frontier's
+    adjacency windows.  Follows DI edges src→dst (the layout CSR indexes).
+    Bitwise equal to ``khop_mask``: the union of ≤k expansions is the union
+    of the first k BFS levels.
+
+    The reference pads each frontier to a power-of-two bucket to bound its
+    jit compiles; nothing here compiles, so each level gathers exactly the
+    frontier's windows (``repeat_interleave`` over their lengths): its
+    gather costs Σ deg(frontier), whatever the widest window, beside O(n)
+    elementwise work on the (n,) masks.  Two host reads a level: the
+    frontier's ids and its window total.  Seed ids are taken as the
+    reference takes them: marked where ``.at[ids].set`` marks (wrap in
+    [-n, -1], drop the rest) and expanded from the windows ``seg[ids]``
+    reads."""
+    e_ok = _all_edges(g, edge_allowed)
+    if max_deg is None:
+        max_deg = g.max_deg if g.max_deg >= 0 else (
+            int((g.seg[1:] - g.seg[:-1]).max()) if g.n else 0)
+    max_deg = max(max_deg, 1)
+    seeds = np.unique(np.asarray(seed_ids, np.int32))
+    frontier = torch.from_numpy(seeds.astype(np.int64)).to(g.device)
+    reached = mark(scatter_ids(frontier, g.n), g.n, g.device)
+    levels = 0
+    for _ in range(k):
+        if frontier.numel() == 0 or g.m == 0:
+            break
+        new = _csr_step(g, reached, frontier, e_ok, max_deg)
+        frontier = torch.nonzero(new & ~reached).flatten()
+        reached = new
+        levels += 1
+    rounds["khop_csr"] = rounds.get("khop_csr", 0) + levels
+    return reached

@@ -146,3 +146,47 @@ def with_padded_edges(ref_batch, seed: int, share: float = 0.2):
     rng = np.random.default_rng(seed)
     keep = rng.random(ref_batch.n_edges) >= share
     return dataclasses.replace(ref_batch, edge_mask=jnp.asarray(keep))
+
+
+def fixed_shape_edges(seed: int, n: int, m: int):
+    """m distinct (src, dst) pairs over exactly n vertices (every vertex is
+    the source of one pair), so every seed gives a graph of the same (n, m)
+    and the reference's jitted loops compile once per shape, not per seed."""
+    rng = np.random.default_rng(seed)
+    first = np.arange(n) * n + rng.integers(0, n, n)
+    rest = np.setdiff1d(np.arange(n * n), first)
+    codes = np.concatenate([first, rng.choice(rest, m - n, replace=False)])
+    codes = codes[rng.permutation(m)]
+    return codes // n, codes % n
+
+
+def analytics_pair(seed: int, n: int = 24, m: int = 80, backend: str = "arr",
+                   partial_w: int = 0):
+    """(reference PropGraph, port PropGraph on the CPU, meta) on
+    ``fixed_shape_edges`` with x/y/z labels, r/s relationships and an f32
+    ``w`` edge weight in [0.5, 2); ``partial_w`` > 0 also defines ``w2`` on
+    only the first ``partial_w`` DI edges (the others have no value, hence
+    are not traversable).  ``meta`` holds the DI arrays, per-vertex labels,
+    per-edge relationships and weights in DI order."""
+    from repro.core import PropGraph as RefPG
+    from repro_torch.core import PropGraph as PortPG
+
+    rng = np.random.default_rng(seed + 1000)
+    src, dst = fixed_shape_edges(seed, n, m)
+    ref = RefPG(backend=backend).add_edges_from(src, dst)
+    port = PortPG(backend=backend, device="cpu").add_edges_from(src, dst)
+    nodes = np.asarray(ref.graph.node_map)
+    es, ed = np.asarray(ref.graph.src), np.asarray(ref.graph.dst)
+    lab = rng.choice(["x", "y", "z"], size=len(nodes))
+    rel = rng.choice(["r", "s"], size=len(es))
+    w = rng.uniform(0.5, 2.0, len(es)).astype(np.float32)
+    for pg in (ref, port):
+        pg.add_node_labels(nodes, lab)
+        pg.add_edge_relationships(nodes[es], nodes[ed], rel)
+        pg.add_edge_properties("w", nodes[es], nodes[ed], w)
+        if partial_w:
+            pg.add_edge_properties("w2", nodes[es[:partial_w]], nodes[ed[:partial_w]],
+                                   w[:partial_w] * np.float32(2))
+    meta = {"nodes": nodes, "es": es, "ed": ed, "labels": lab, "rels": rel, "w": w,
+            "n": ref.graph.n, "m": ref.graph.m}
+    return ref, port, meta

@@ -249,8 +249,8 @@ def test_unported_parts_raise():
     _, port = build_pair(raw_inputs(0))
     with pytest.raises(NotImplementedError, match="overlay"):
         port.add_node_labels(as_np(port.graph.node_map)[:2], "late")  # store already sealed
-    with pytest.raises(NotImplementedError, match="analytics"):
-        port.khop([0], 2)
+    with pytest.raises(NotImplementedError, match="observability"):
+        port.explain_analyze("(a:rare)-[:likes]->(b)")
     with pytest.raises(NotImplementedError, match="overlay"):
         port.snapshot()
 
