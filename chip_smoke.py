@@ -91,6 +91,25 @@ none of whose failures is caught:
    30 s), PageRank within an L1 distance,
    communities bitwise at a few rounds; then every request at its full cap
    on ``graph1`` (100K edges) against the CPU port;
+3g. the overlay on a ``fork()`` of graph3 and the same stream on a fork of
+   its CPU twin (``overlay_ops``, every draw from ``--seed``): 12 batches
+   of ``insert_edges`` (8,192 pairs, 256 of them base edges), relationships
+   on them (r50 first seen after the seal) and labels on 4,096 vertices
+   (l50 new), one ``match()`` after each batch (the read under writes, each
+   write batch timed), a ``snapshot()`` after batch 6, deletes of 4,096
+   base and 512 delta edges, a re-insert of 256 deleted pairs (revival),
+   deletes of the 16 highest out-degree vertices and 1,024 drawn ones,
+   ``age`` and ``w`` updates on 4,096 entities each; then phase 3's 32
+   requests (timed, each kind bitwise to the CPU fork), k-hop (``csr``
+   degrades to the frontier step and equals it), components (certificate,
+   and the first rounds against the CPU fork), PageRank over ``w`` (L1),
+   and ``sample`` of ``(a:l0)`` (15-10) over the re-sorted view (its build
+   timed), bitwise against the CPU fork on the card's priorities; B1 and B3
+   must launch.  Then ``compact()``, timed: every kind keeps its answer in
+   external ids, the snapshot answers as it did, and the parent graph
+   still equals phase 3.  The same stream at graph1 (batches of 128):
+   compaction bitwise equal to the CPU port's and to a from-scratch build
+   of the surviving state;
 4. the byte layout (``byte_masks()``): build it and answer a fused pattern,
    which runs the byte kernel; its masks must equal the packed graph's; the
    same request timed warm (median of 5, ``byte_request_ms``);
@@ -1133,6 +1152,332 @@ def analytics_phase(pg, cpu_pg, seed: int, device: str, sync) -> dict:
     out["graph1"] = {"n": g1.n_vertices, "m": g1.n_edges,
                      "check": analytics_at(g1, g1_cpu, seeds1)}
     del g1, g1_cpu
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ----------------------------------------------------------------- overlay
+# phase 3g: 12 write batches in the shape of the reference's benchmarks/bench_ingest.py
+# (insert, then relationships on the batch, a read between batches), scaled to graph3
+OVERLAY_BATCHES, OVERLAY_BATCH, OVERLAY_SNAPSHOT_AFTER = 12, 8192, 6
+OVERLAY_BATCH_GRAPH1 = 128
+
+
+def overlay_ops(pg, seed: int, batch: int):
+    """Phase 3g's write stream on ``pg``'s graph, as ``(method, args)`` steps
+    and a ``("snapshot",)`` marker, every draw from ``seed`` and every
+    endpoint an existing vertex.  Per batch: ``insert_edges`` of ``batch``
+    pairs, 1/32 of them already base edges (the dedup path), relationships
+    r0-r50 on all of them (r50 first seen after the seal), labels l0-l50 on
+    ``batch``/2 vertices.  Then edge deletes (``batch``/2 base edges and
+    ``batch``/16 delta edges), a re-insert of ``batch``/32 deleted pairs (the
+    revival), vertex deletes (the 16 of highest out-degree and ``batch``/8
+    drawn), and ``age``/``w`` updates on ``batch``/2 entities each (delta
+    edges among the edges)."""
+    rng = np.random.default_rng(seed + 21)
+    g = pg.graph
+    nodes = g.node_map.cpu().numpy()
+    src, dst = nodes[g.src.cpu().numpy()], nodes[g.dst.cpu().numpy()]
+    n_dup, half = batch // 32, batch // 2
+    ops, fresh = [], []
+    for b in range(OVERLAY_BATCHES):
+        dup = rng.choice(g.m, n_dup, replace=False)
+        new = (rng.choice(nodes, batch - n_dup), rng.choice(nodes, batch - n_dup))
+        fresh.append(new)
+        order = rng.permutation(batch)
+        s, d = np.concatenate([new[0], src[dup]])[order], np.concatenate([new[1], dst[dup]])[order]
+        ops.append(("insert_edges", (s, d)))
+        ops.append(("add_edge_relationships",
+                    (s, d, np.array([f"r{i}" for i in range(N_ATTRS + 1)])[
+                        rng.integers(0, N_ATTRS + 1, batch)])))
+        ops.append(("add_node_labels",
+                    (rng.choice(nodes, half, replace=False),
+                     np.array([f"l{i}" for i in range(N_ATTRS + 1)])[
+                         rng.integers(0, N_ATTRS + 1, half)])))
+        if b + 1 == OVERLAY_SNAPSHOT_AFTER:
+            ops.append(("snapshot",))
+    fs = np.concatenate([f[0] for f in fresh])
+    fd = np.concatenate([f[1] for f in fresh])
+    gone_b = rng.choice(g.m, half, replace=False)
+    gone_d = rng.choice(fs.size, batch // 16, replace=False)
+    gs, gd = np.concatenate([src[gone_b], fs[gone_d]]), np.concatenate([dst[gone_b], fd[gone_d]])
+    ops.append(("delete_edges", (gs, gd)))
+    back = rng.choice(gs.size, batch // 32, replace=False)
+    ops.append(("insert_edges", (gs[back], gd[back])))
+    deg = (g.seg[1:] - g.seg[:-1]).cpu().numpy()
+    hubs = nodes[np.argsort(deg, kind="stable")[-16:]]
+    ops.append(("delete_vertices", (np.concatenate([hubs, rng.choice(nodes, batch // 8)]),)))
+    ops.append(("update_node_properties",
+                ("age", rng.choice(nodes, half, replace=False), rng.integers(0, 100, half))))
+    eb, ed_ = rng.choice(g.m, half // 2, replace=False), rng.choice(fs.size, half // 2,
+                                                                    replace=False)
+    ops.append(("update_edge_properties",
+                ("w", np.concatenate([src[eb], fs[ed_]]), np.concatenate([dst[eb], fd[ed_]]),
+                 rng.random(half))))
+    return ops
+
+
+def external_answer(pg, res):
+    """A MatchResult in external ids: its vertices' ids and its edges'
+    (src, dst) id pairs, each sorted — comparable across a compaction,
+    which renumbers both."""
+    g = pg._require_graph()
+    nm = g.node_map.cpu().numpy().astype(np.int64)
+    em = res.edge_mask.cpu().numpy()
+    pairs = (nm[g.src.cpu().numpy()[em]] << 32) | nm[g.dst.cpu().numpy()[em]]
+    return np.sort(nm[res.vertex_mask.cpu().numpy()]), np.sort(pairs)
+
+
+def same_external(a, b) -> bool:
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def from_scratch(pg, device):
+    """A fresh ingest of ``pg``'s surviving state in external ids — the
+    alive edges, every surviving attribute pair in history order, every
+    column's valid rows — built without the compactor."""
+    from repro_torch.core import PropGraph
+
+    g = pg._require_graph()
+    nm, s_all, d_all = (t.cpu().numpy() for t in (g.node_map, g.src, g.dst))
+    ae = pg._alive_edge_mask()
+    alive_e = np.ones(g.m, bool) if ae is None else ae.cpu().numpy()
+    alive_v = np.ones(g.n, bool) if pg._dead_v is None else ~pg._dead_v
+    fresh = PropGraph(backend=pg.backend, device=device).add_edges_from(
+        nm[s_all[alive_e]], nm[d_all[alive_e]])
+    ve, va = pg._vstore.all_pairs()
+    ok = alive_v[ve]
+    fresh.add_node_labels(nm[ve[ok]], np.array(pg._vstore.amap.values)[va[ok]])
+    ee, ea = pg._estore.all_pairs()
+    ok = alive_e[ee]
+    fresh.add_edge_relationships(nm[s_all[ee[ok]]], nm[d_all[ee[ok]]],
+                                 np.array(pg._estore.amap.values)[ea[ok]])
+    for name, (col, valid) in pg.host_columns("node").items():
+        keep = valid & alive_v
+        fresh.add_node_properties(name, nm[keep], col[keep])
+    for name, (col, valid) in pg.host_columns("edge").items():
+        keep = np.zeros(g.m, bool)
+        keep[:len(valid)] = valid
+        keep &= alive_e
+        fresh.add_edge_properties(name, nm[s_all[keep]], nm[d_all[keep]], col[keep[:len(col)]])
+    return fresh
+
+
+def same_arrays(a: dict, b: dict, *, by_value: bool = False) -> bool:
+    """Two ``to_arrays`` states equal bit for bit: the DI fields, the
+    columns and each store's plane — row by row in attribute-id order, or,
+    ``by_value``, row by row of each attribute value (a value with no row is
+    an all-zero row), for builds that interned the values in another
+    order."""
+    if any(not np.array_equal(a["graph"][k], b["graph"][k])
+           for k in ("src", "dst", "seg", "node_map", "n", "m", "max_deg")):
+        return False
+    for props in ("vertex_props", "edge_props"):
+        if set(a[props]) != set(b[props]) or any(
+                x.dtype != y.dtype or not np.array_equal(x, y)
+                for name in a[props] for x, y in zip(a[props][name], b[props][name])):
+            return False
+    for s in ("vstore", "estore"):
+        x, y = a[s], b[s]
+        if not by_value:
+            if x["values"] != y["values"] or not np.array_equal(x["bitmap"], y["bitmap"]):
+                return False
+            continue
+        rows_x = dict(zip(x["values"], x["bitmap"]))
+        rows_y = dict(zip(y["values"], y["bitmap"]))
+        zero = np.zeros_like(x["bitmap"][0])
+        if any(not np.array_equal(rows_x.get(v, zero), rows_y.get(v, zero))
+               for v in set(rows_x) | set(rows_y)):
+            return False
+    return True
+
+
+def apply_ops(pg, ops, sync, on_batch=None, on_snapshot=None) -> dict:
+    """Run ``ops`` on ``pg``; ``on_batch(i, seconds)`` after each batch's
+    three writes (timed, ``sync()`` ending them) and ``on_snapshot()`` at the
+    marker.  Returns each method's seconds per call, in call order."""
+    t0, writes, per_step = time.perf_counter(), 0, {}
+    for step in ops:
+        if step[0] == "snapshot":
+            if on_snapshot is not None:
+                on_snapshot()
+            t0 = time.perf_counter()
+            continue
+        t_step = time.perf_counter()
+        getattr(pg, step[0])(*step[1])
+        sync()
+        per_step.setdefault(step[0], []).append(time.perf_counter() - t_step)
+        if step[0] == "add_node_labels":
+            sync()
+            if on_batch is not None:
+                on_batch(writes, time.perf_counter() - t0)
+            writes += 1
+            t0 = time.perf_counter()
+    sync()
+    return per_step
+
+
+def overlay_phase(pg, cpu_pg, results, seed: int, device: str, sync) -> dict:
+    """Phase 3g (module docstring): the overlay at ``pg``'s scale on a fork
+    of it, the same stream on a fork of the CPU twin ``cpu_pg``; ``results``
+    are phase 3's answers on ``pg``."""
+    import torch
+
+    from repro_torch.core import PropGraph
+    from repro_torch.graph.generators import PAPER_GRAPHS, random_uniform_graph
+    from repro_torch.kernels.bitmap_query import ops
+    from repro_torch.kernels.neighbor_sample import ops as ns_ops
+
+    t_phase = time.perf_counter()
+    out = {}
+    ops.reset_launches()
+    ns_ops.reset_launches()
+    t0 = time.perf_counter()
+    ov = pg.fork()
+    out["fork_ms"] = (time.perf_counter() - t0) * 1e3
+    cpu_ov = cpu_pg.fork()
+    stream = overlay_ops(pg, seed, OVERLAY_BATCH)
+    kinds = requests(6)
+    write_s, read_ms, snap = [], [], {}
+
+    def on_batch(i, seconds):
+        write_s.append(seconds)
+        t = time.perf_counter()
+        ov.match(kinds[i % 6][1])
+        sync()
+        read_ms.append((time.perf_counter() - t) * 1e3)
+
+    def on_snapshot():
+        t = time.perf_counter()
+        snap["pg"] = ov.snapshot()
+        snap["ms"] = (time.perf_counter() - t) * 1e3
+        snap["answers"] = [snap["pg"].match(text) for _, text in kinds]
+
+    t0 = time.perf_counter()
+    per_step = apply_ops(ov, stream, sync, on_batch, on_snapshot)
+    out["stream_s"] = time.perf_counter() - t0
+    out["write_ms_by_step"] = {k: statistics.median(v[-4:]) * 1e3 for k, v in per_step.items()}
+    t0 = time.perf_counter()
+    apply_ops(cpu_ov, stream, lambda: None)
+    out["cpu_stream_s"] = time.perf_counter() - t0
+    out["write_ms_per_batch"] = statistics.median(write_s[-4:]) * 1e3
+    out["write_ms_batches"] = [s * 1e3 for s in write_s]
+    out["read_under_writes_p50_ms"] = statistics.median(read_ms)
+    out["snapshot_ms"] = snap["ms"]
+    out["delta_stats"] = ov.delta_stats()
+    out["n"], out["m_eff"] = ov.n_vertices, ov.n_edges
+    check(ov.delta_stats() == cpu_ov.delta_stats(), "3g: the CPU fork took the same stream")
+    check(not pg.has_overlay() and pg.n_edges == results[0].edge_mask.shape[0],
+          "3g: the parent has no overlay")
+
+    # the 32 requests on the overlay, each kind held to the CPU fork
+    reqs = requests(32)
+    lat, ov_results, total = answer(ov, reqs, sync)
+    out["p50_ms"], out["p95_ms"] = statistics.median(lat), float(np.percentile(lat, 95))
+    out["qps"] = len(reqs) / total
+    for (kind, text), res in zip(reqs[:6], ov_results[:6]):
+        check(res.vertex_mask.shape == (ov.n_vertices,) and res.edge_mask.shape == (ov.n_edges,),
+              f"3g {kind}: result shapes")
+        check(same_result(res, cpu_ov.match(text)), f"3g {kind}: card equals the CPU fork")
+    check(all(r.n_vertices() > 0 for r in ov_results[:6]), "3g: every request kind matched")
+
+    # analytics on the overlay
+    seeds = np.random.default_rng(seed + 11).choice(pg.graph.node_map.cpu().numpy(),
+                                                    ANALYTICS_SEEDS, replace=False)
+    timed = {}
+
+    def run_timed(name, fn):
+        fn()
+        sync()
+        t = time.perf_counter()
+        got = fn()
+        sync()
+        timed[name] = (time.perf_counter() - t) * 1e3
+        return got
+
+    khop = run_timed("khop_ms", lambda: ov.khop(seeds, ANALYTICS_K))
+    check(run_timed("khop_csr_ms", lambda: ov.khop(seeds, ANALYTICS_K, impl="csr")).equal(khop),
+          "3g: csr k-hop degrades to the frontier step and equals it")
+    check(khop.cpu().equal(cpu_ov.khop(seeds, ANALYTICS_K)), "3g: k-hop equals the CPU fork")
+    comps = run_timed("components_ms", lambda: ov.components())
+    check_components_certificate(ov, None, comps, "3g: components")
+    check(ov.components(max_iters=CPU_PROBE_ROUNDS).cpu().equal(
+        cpu_ov.components(max_iters=CPU_PROBE_ROUNDS)),
+          f"3g: components at {CPU_PROBE_ROUNDS} rounds equal the CPU fork")
+    ranks = run_timed("pagerank_ms", lambda: ov.pagerank(weight="w"))
+    out["pagerank_l1"] = float((ranks.cpu().double() - cpu_ov.pagerank(weight="w").double())
+                               .abs().sum())
+    check(out["pagerank_l1"] <= PR_L1_TOL, f"3g: PageRank L1 {out['pagerank_l1']} <= {PR_L1_TOL}")
+    out.update(timed)
+
+    # sampling over the re-sorted view, held to the CPU fork on the card's priorities
+    sync()
+    t0 = time.perf_counter()
+    vseg, vdst, _, perm = ov._sampling_view()
+    sync()
+    out["sampling_view_ms"] = (time.perf_counter() - t0) * 1e3
+    check(perm is not None and vseg.shape == (ov.n_vertices + 1,), "3g: a re-sorted view")
+    sample_ms = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        ov.sample("(a:l0)", FANOUTS, seed=seed)
+        sync()
+        sample_ms.append((time.perf_counter() - t0) * 1e3)
+    out["sample_ms"] = statistics.median(sample_ms[1:])
+    with recording() as rec:
+        blocks = ov.sample("(a:l0)", FANOUTS, seed=seed)
+    sync()
+    out["sample_rows_checked"] = check_layers(rec["layers"], vseg.cpu().numpy(),
+                                              vdst.cpu().numpy(), ov.n_edges, seed)
+    with replaying(rec["draws"]):
+        cpu_blocks = cpu_ov.sample("(a:l0)", FANOUTS, seed=seed)
+    check(same_blocks(blocks, cpu_blocks), "3g: sampled blocks equal the CPU fork's")
+    del rec, blocks, cpu_blocks
+    out["b1_launches"] = ops.launches[ops.PACKED]
+    out["b3_launches"] = ns_ops.launches[ns_ops.WINDOW_SELECT]
+    if device == "cuda":
+        check(out["b1_launches"] > 0, "3g: the overlay path launched B1")
+        check(out["b3_launches"] > 0, "3g: sampling over the overlay view launched B3")
+
+    # compaction: the same answers in external ids, the snapshot and the parent untouched
+    before = [external_answer(ov, r) for r in ov_results[:6]]
+    sync()
+    t0 = time.perf_counter()
+    ov.compact()
+    sync()
+    out["compact_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    after = [ov.match(text) for _, text in kinds]
+    sync()
+    out["first_requests_after_compact_s"] = time.perf_counter() - t0
+    check(not ov.has_overlay() and ov.n_edges == out["m_eff"] - np.count_nonzero(
+        ~cpu_ov._alive_edge_mask().numpy()) and ov.n_vertices <= out["n"],
+          "3g: compaction folded the overlay in")
+    for (kind, _), a, b in zip(kinds, after, before):
+        check(same_external(external_answer(ov, a), b), f"3g {kind}: compaction kept the answer")
+    for (kind, text), want in zip(kinds, snap["answers"]):
+        check(same_result(snap["pg"].match(text), want), f"3g {kind}: the snapshot still answers")
+    for (kind, text), want in zip(kinds, results[:6]):
+        check(same_result(pg.match(text), want), f"3g {kind}: the parent equals phase 3")
+    del ov, cpu_ov, snap
+
+    # graph1: the same stream at batches of OVERLAY_BATCH_GRAPH1, compaction held to a
+    # from-scratch build of the surviving state and to the CPU port's compaction
+    src1, dst1 = random_uniform_graph(PAPER_GRAPHS["graph1"], seed=seed)
+    g1, _ = build_graph(src1, dst1, seed, device)
+    g1_cpu = PropGraph.from_arrays(g1.to_arrays(), device="cpu")
+    stream1 = overlay_ops(g1, seed, OVERLAY_BATCH_GRAPH1)
+    for g in (g1, g1_cpu):
+        apply_ops(g, stream1, sync)
+    scratch = from_scratch(g1, device)
+    g1.compact()
+    g1_cpu.compact()
+    a1 = g1.to_arrays()
+    check(same_arrays(a1, g1_cpu.to_arrays()), "3g graph1: compaction equals the CPU port's")
+    check(same_arrays(a1, scratch.to_arrays(), by_value=True),
+          "3g graph1: compaction equals a from-scratch build of the surviving state")
+    out["graph1"] = {"n": g1.n_vertices, "m": g1.n_edges, "check": "bitwise"}
+    del g1, g1_cpu, scratch
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -2531,6 +2876,24 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
                                  for k in ("components", "components_filtered", "shortest_paths",
                                            "shortest_paths_filtered")},
                       "graph1": out["analytics"]["graph1"]}), flush=True)
+
+    # --- phase 3g: the overlay on a fork of the same graph and of its CPU twin
+    out["overlay"] = overlay_phase(pg, cpu_pg, results, seed, device, sync)
+    ovl = out["overlay"]
+    print("phase 3g timings", json.dumps({
+        **{k: ovl[k] for k in ("phase_s", "stream_s", "cpu_stream_s", "write_ms_per_batch",
+                               "read_under_writes_p50_ms", "p50_ms", "p95_ms", "qps",
+                               "sampling_view_ms", "sample_ms", "snapshot_ms", "fork_ms",
+                               "compact_s", "first_requests_after_compact_s", "khop_ms",
+                               "components_ms", "pagerank_ms")},
+        "phase3_p50_ms": out["p50_ms"]}), flush=True)
+    print("phase 3g ok: under 12 write batches, deletes, revivals and updates every request",
+          "kind, k-hop, sampled blocks equal the CPU fork bit for bit, components hold their",
+          "certificate, PageRank within", PR_L1_TOL, "(L1); compaction kept every answer, the",
+          "snapshot and the parent answer as before; graph1's compaction equals the CPU port's",
+          "and a from-scratch build", json.dumps(
+              {k: ovl[k] for k in ("b1_launches", "b3_launches", "delta_stats", "pagerank_l1",
+                                   "graph1")}), flush=True)
     del cpu_pg
 
     # --- phase 4: the byte layout
@@ -2566,10 +2929,11 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
         masks = masks.to(device)
         plane = pg._vstore.finalize().bitmap
         bitmap = pgb._vstore.finalize().bitmap
-        b1 = bitmap_query_entry("bitmap_query_packed (B1)", plane, masks,
-                                main_launches[ops.PACKED] + out["analytics"]["b1_launches"])
-        b1["launches_by_path"] = {"match": main_launches[ops.PACKED],
-                                  "analytics": out["analytics"]["b1_launches"]}
+        b1_paths = {"match": main_launches[ops.PACKED],
+                    "analytics": out["analytics"]["b1_launches"],
+                    "overlay": out["overlay"]["b1_launches"]}
+        b1 = bitmap_query_entry("bitmap_query_packed (B1)", plane, masks, sum(b1_paths.values()))
+        b1["launches_by_path"] = b1_paths
         b2 = bitmap_query_entry("bitmap_query_byte (B2)", bitmap, masks,
                                 byte_launches[ops.BYTE])
         check(b1["max_abs_err"] == 0 and b2["max_abs_err"] == 0, "timed kernels exact")
@@ -2583,8 +2947,10 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
                 lambda: ops.bitmap_query_batched_packed(eplane, em), B1_KERNEL)["ms"]
             out[f"b1_edge_plane_q{q}_bound_ms"] = selected_rows_bytes(
                 eplane, em) / HBM_BYTES_PER_S * 1e3
-        b3 = window_select_entry(sampled["b3_inputs"],
-                                 sum(v["b3_launches"] for v in out["sample"].values()))
+        b3_paths = {"sample": sum(v["b3_launches"] for v in out["sample"].values()),
+                    "overlay": out["overlay"]["b3_launches"]}
+        b3 = window_select_entry(sampled["b3_inputs"], sum(b3_paths.values()))
+        b3["launches_by_path"] = b3_paths
         check(b3["max_abs_err"] == 0, "timed B3 exact")
         b5_launches = out["gnn"]["b5_launches"]
         b5 = [seg_mm_entry(f"seg_mm (B5) population layer {i + 1}", call, b5_launches)

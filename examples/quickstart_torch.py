@@ -3,14 +3,17 @@ end to end (§V + §VI).
 
     PYTHONPATH=src python examples/quickstart_torch.py [--device cpu] [--edges 100000]
 
-The port's twin of steps 1–6 of ``examples/quickstart.py``: a Tab.-I-regime
-random graph, labels and relationships from 50-value pools, OR-semantics
-queries on all three DIP backends, a typed subgraph with property-filtered
-BFS and PageRank, ``match()``/``explain()``, variable-length patterns with
-k-hop (``impl='csr'``) and components, and a save/load round trip under
-another backend.  On the card (the default) label and relationship masks
-run the CUDA kernel B1; ``--device cpu`` runs its plain version.  Steps 7–9
-of the reference (meshes, the service, the overlay) wait for their ports.
+The port's twin of steps 1–6 and 9 of ``examples/quickstart.py``: a
+Tab.-I-regime random graph, labels and relationships from 50-value pools,
+OR-semantics queries on all three DIP backends, a typed subgraph with
+property-filtered BFS and PageRank, ``match()``/``explain()``,
+variable-length patterns with k-hop (``impl='csr'``) and components, a
+save/load round trip under another backend, and the overlay (streaming
+``insert_edges``, a pinned snapshot, a what-if fork that deletes hubs,
+``compact()`` with answers unchanged).  On the card (the default) label and
+relationship masks run the CUDA kernel B1; ``--device cpu`` runs its plain
+version.  Steps 7–8 of the reference (meshes, the service) wait for their
+ports.
 """
 import argparse
 import os
@@ -110,10 +113,36 @@ def main() -> None:
     assert pg_l.match(pattern).edge_mask.equal(res.edge_mask)
     print(f"save/load round-trip (arr → listd) ✓  ({path})")
 
-    # -- 7.–9. -----------------------------------------------------------------------
+    # -- 7.–8. -----------------------------------------------------------------------
     print("7. sharded execution: waits for the multi-GPU port (ROADMAP A10)")
     print("8. serving: waits for the service layer's port (ROADMAP A9)")
-    print("9. streaming ingest, snapshots, forks: wait for the overlay's port (ROADMAP A8)")
+
+    # -- 9. streaming ingest: LSM overlay, snapshots, what-if forks ------------------
+    # The first query sealed the DIP stores; from here on, writes append to an
+    # overlay delta instead of re-running the §V ingest pipeline
+    # (docs/ARCHITECTURE.md §11).  snapshot() pins an immutable version for
+    # readers; fork() branches a writable copy-on-write view; compact() folds
+    # the overlay back into sorted base stores (equal to a from-scratch build).
+    snap = pg.snapshot()  # zero-copy: shares the sealed stores
+    pinned = snap.query_labels(["label1"])
+    bs, bd = nodes[:512], nodes[512:1024]  # a late-arriving edge batch
+    pg.insert_edges(bs, bd)  # O(batch): no re-sort, no rebuild
+    pg.add_edge_relationships(bs, bd, ["rel7"] * 512)
+    assert snap.query_labels(["label1"]).equal(pinned)
+    print(f"streamed {pg.delta_stats()['delta_edges']:,} delta edges; "
+          f"snapshot still answers from the pinned version ✓")
+    what_if = pg.fork()  # private overlay over the shared base
+    what_if.delete_vertices(nodes[np.argsort(pr)[-4:]])  # tombstones; parent untouched
+    c_now = pg.components("(a)-[:rel7]->(b)").cpu().numpy()
+    c_wo = what_if.components("(a)-[:rel7]->(b)").cpu().numpy()
+    print(f"what-if fork: rel7 subgraph has {int((np.bincount(c_wo[c_wo >= 0]) > 0).sum()):,} "
+          f"components without the top-PageRank vertices "
+          f"(vs {int((np.bincount(c_now[c_now >= 0]) > 0).sum()):,} live) — "
+          f"parent version {pg.version}, fork version {what_if.version}")
+    before = pg.match(pattern).vertex_mask
+    pg.compact()  # merge: overlay → fresh base stores
+    assert not pg.has_overlay() and pg.match(pattern).vertex_mask.equal(before)
+    print("compaction folded the overlay in; answers unchanged ✓")
     if device.type == "cuda":
         torch.cuda.synchronize()
     print("OK")

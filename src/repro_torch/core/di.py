@@ -41,6 +41,12 @@ class DIGraph:
     degree of ``u``; ``node_map`` strictly increasing.  ``max_deg`` caches
     the widest adjacency window (``-1`` = unknown: consumers fall back to
     the conservative bound).
+
+    ``unsorted=True`` marks the overlay's combined view (sorted base edges
+    followed by the delta edges, ``PropGraph._effective_graph``): ``seg``
+    then covers only the sorted base prefix, so SEG-window consumers
+    (``khop_csr``, ``edge_lookup``) must not be handed it; the edge-centric
+    paths consume it unchanged.
     """
 
     src: torch.Tensor  # (m,) int32
@@ -50,6 +56,7 @@ class DIGraph:
     n: int
     m: int
     max_deg: int = -1
+    unsorted: bool = False
 
     @property
     def device(self) -> torch.device:

@@ -50,8 +50,13 @@ def save_propgraph(path: str, pg: PropGraph) -> str:
     ``path``; a crash mid-swap can at worst leave the previous version
     parked in a ``<name>.old.*`` sibling, never a torn one.
 
-    The port has no overlay yet (A8), so there is nothing to compact on
-    save: the stores' raw pairs are the whole attribute state."""
+    A graph with a live overlay (delta edges, delta attribute pairs,
+    tombstones) is flattened first — compact-on-save on a private fork, so
+    the caller's overlay is untouched — because the format stores only
+    base state; ``load_propgraph`` then round-trips bitwise."""
+    if pg.has_overlay():
+        pg = pg.fork()
+        pg.compact()
     g = pg._require_graph()
     ve, va, vvals = _store_pairs(pg._vstore, "vertex")
     ee, ea, evals = _store_pairs(pg._estore, "edge")

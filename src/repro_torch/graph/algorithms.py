@@ -46,7 +46,8 @@ def triangle_count(g: DIGraph, *, max_deg: int) -> torch.Tensor:
     lane = torch.arange(max_deg, dtype=torch.int64, device=g.device)
     start_u = gather(g.seg, g.src).long()
     deg_u = gather(g.seg, g.src + 1).long() - start_u
-    nbr_u = gather(g.dst, (start_u[:, None] + lane).clamp(0, last).flatten()).view(-1, max_deg)
+    nbr_u = gather(g.dst, (start_u[:, None] + lane).clamp(0, last).flatten()).view(
+        len(start_u), max_deg)
     valid_u = lane < deg_u[:, None]
     end_v = gather(g.seg, g.dst + 1).long()[:, None].expand(-1, max_deg)
     lo = gather(g.seg, g.dst).long()[:, None].expand(-1, max_deg)

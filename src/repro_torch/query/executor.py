@@ -4,8 +4,10 @@
    DIP store; slots the planner marked ``fused`` ride one batched launch per
    store.  On a packed store the masks stay 32-bit words.
 2. **Combination**: predicate masks off the typed property columns AND into
-   their slots.  On packed stores this happens in word space
-   (``_combine_packed``) with a single unpack at the propagation boundary.
+   their slots, and so do the overlay's alive masks (tombstoned vertices
+   and edges drop out of EVERY slot, constrained or not).  On packed stores
+   this happens in word space (``_combine_packed``) with a single unpack at
+   the propagation boundary.
 3. **Chain propagation** (static hop structure): a forward pass computes
    per-position reachable sets, a backward pass prunes to vertices/edges on
    at least one COMPLETE match.  Variable-length hops (``*lo..hi``, ``*``)
@@ -241,21 +243,30 @@ def _ones_words(n: int, device) -> torch.Tensor:
     return words
 
 
-def _combine_packed(nwords, ewords, vpreds, epreds, *, n: int, m: int, device):
+def _combine_packed(nwords, ewords, vpreds, epreds, av_words, ae_words, *, n: int, m: int,
+                    device):
     """Word-space mask combination: predicate evaluation, packing, AND with
-    the label/relationship words, and the single unpack at the propagation
-    boundary.  ``nwords[slot]`` / ``ewords[slot]``: packed store words or
-    None (unconstrained); ``vpreds[slot]`` / ``epreds[slot]``: lists of
-    ``(col, valid, compare, value)``."""
+    the label/relationship words and the packed alive masks, and the single
+    unpack at the propagation boundary.  ``nwords[slot]`` /
+    ``ewords[slot]``: packed store words or None (unconstrained);
+    ``vpreds[slot]`` / ``epreds[slot]``: lists of ``(col, valid, compare,
+    value)``; ``av_words`` / ``ae_words``: the packed alive masks or None.
+    An edge column shorter than ``m`` (it predates the overlay's delta
+    edges) pads with invalid rows."""
 
-    def combine(words, preds, size):
+    def combine(words, preds, size, alive_words):
         out = words if words is not None else _ones_words(size, device)
         for col, valid, compare, value in preds:
-            out = out & bitplane.pack_mask(valid & compare(col, value))
+            pm = valid & compare(col, value)
+            if pm.shape[0] < size:
+                pm = torch.cat([pm, pm.new_zeros(size - pm.shape[0])])
+            out = out & bitplane.pack_mask(pm)
+        if alive_words is not None:
+            out = out & alive_words
         return bitplane.unpack_mask(out, size)
 
-    cands = [combine(nwords[i], vpreds[i], n) for i in range(len(nwords))]
-    emasks = [combine(ewords[i], epreds[i], m) for i in range(len(ewords))]
+    cands = [combine(nwords[i], vpreds[i], n, av_words) for i in range(len(nwords))]
+    emasks = [combine(ewords[i], epreds[i], m, ae_words) for i in range(len(ewords))]
     return cands, emasks
 
 
@@ -275,7 +286,8 @@ def _execute_plan_packed(pg, plan: Plan) -> "MatchResult":
     cands, emasks = _combine_packed(
         [node_words.get(i) for i in range(len(vpreds))],
         [edge_words.get(i) for i in range(len(epreds))],
-        vpreds, epreds, n=g.n, m=g.m, device=g.device)
+        vpreds, epreds, pg._alive_words("node"), pg._alive_words("edge"),
+        n=g.n, m=g.m, device=g.device)
     return _finish_propagation(plan, g, cands, emasks)
 
 
@@ -312,6 +324,12 @@ def execute_plan_with_masks(pg, plan: Plan, label_masks: Dict[int, torch.Tensor]
                 p = step.predicate
                 e = e & pg.edge_predicate_mask(p.name, p.op, p.value)
         emasks.append(e)
+    # overlay tombstones drop out of EVERY slot — including unconstrained
+    # ones, whose all-ones default would otherwise bring them back
+    av = pg._alive_vertex_mask()
+    if av is not None:
+        cands = [c & av for c in cands]
+    emasks = [pg._and_alive_edges(e) for e in emasks]
     return _finish_propagation(plan, g, cands, emasks)
 
 

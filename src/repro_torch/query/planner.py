@@ -131,10 +131,11 @@ def plan_pattern(pg, pattern: Pattern, *, impl: Optional[str] = None) -> Plan:
     vstore, estore = pg._vstore, pg._estore
     validate_pattern(pattern)
 
-    # per-attribute stats, read once per plan (no overlay in this port yet,
-    # so there are no tombstones to subtract)
-    vcounts = vstore.attr_counts() if vstore is not None else None
-    ecounts = estore.attr_counts() if estore is not None else None
+    # tombstone-adjusted stats, read once per plan: dead entities are
+    # masked out of every query result, so they must not inflate the
+    # selectivity estimates either
+    vcounts = pg._attr_counts("node") if vstore is not None else None
+    ecounts = pg._attr_counts("edge") if estore is not None else None
 
     # -- 1. chain orientation: start from the more selective end ------------
     reversed_chain = False

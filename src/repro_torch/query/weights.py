@@ -21,9 +21,9 @@ __all__ = ["edge_weight_values"]
 def edge_weight_values(pg, name: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """(values (m,) f32, valid (m,) bool) for edge property ``name``.
 
-    A column shorter than the edge universe pads with (0, False).  Only
-    the overlay's delta edges, which predate the column, make one; the
-    overlay is not ported, so the branch waits for it."""
+    A column shorter than the edge universe pads with (0, False): the
+    overlay's delta edges postdate the column, and hold no value until
+    ``update_edge_properties`` sets one."""
     g = pg._require_graph()
     if name not in pg.edge_props:
         raise KeyError(f"unknown edge property {name!r}; known: {sorted(pg.edge_props)}")

@@ -271,6 +271,13 @@ def khop_csr(
     reference takes them: marked where ``.at[ids].set`` marks (wrap in
     [-n, -1], drop the rest) and expanded from the windows ``seg[ids]``
     reads."""
+    if g.unsorted:
+        # the overlay's combined base++delta view: SEG covers only the sorted
+        # base prefix, so the windows gathered here would miss every delta
+        # edge — the caller must use khop_mask (PropGraph.khop degrades)
+        raise ValueError(
+            "khop_csr requires a sorted DI graph with valid SEG; got an "
+            "unsorted combined view — use khop_mask instead")
     e_ok = _all_edges(g, edge_allowed)
     if max_deg is None:
         max_deg = g.max_deg if g.max_deg >= 0 else (

@@ -190,3 +190,179 @@ def analytics_pair(seed: int, n: int = 24, m: int = 80, backend: str = "arr",
     meta = {"nodes": nodes, "es": es, "ed": ed, "labels": lab, "rels": rel, "w": w,
             "n": ref.graph.n, "m": ref.graph.m}
     return ref, port, meta
+
+
+# ------------------------------------------------------------------ overlay
+OV_PATTERNS = (  # the six request kinds of chip_smoke.py, over the overlay graphs' attributes
+    ("fused_1hop", "(a:l1|l2)-[:follows]->(b:l3)"),
+    ("two_hop", "(a:l1)-[:follows]->(b)-[:likes|mentions]->(c:l2)"),
+    ("predicates", "(a:l1 {age > 20})-[e:follows {w < 0.5}]->(b:l2|zz)"),
+    ("reversed", "(a:l1)<-[:follows]-(b:l2)"),
+    ("bounded", "(a:l3)-[:follows*1..3]->(b)"),
+    ("unbounded", "(a:l2)-[:follows|likes*]->(b:l3)"),
+)
+
+
+def overlay_pair(seed: int, backend: str = "arr", n: int = 40, m: int = 160):
+    """(reference PropGraph, port PropGraph on the CPU, meta) on
+    ``fixed_shape_edges(seed, n, m)`` (every seed gives the same (n, m), so
+    the reference compiles once per shape) with l1/l2/l3 labels,
+    follows/likes relationships, an int64 ``age`` and a float64 ``w``; both
+    stores sealed by one ``match()``."""
+    from repro.core import PropGraph as RefPG
+    from repro_torch.core import PropGraph as PortPG
+
+    rng = np.random.default_rng(seed + 2000)
+    src, dst = fixed_shape_edges(seed, n, m)
+    ref = RefPG(backend=backend).add_edges_from(src, dst)
+    port = PortPG(backend=backend, device="cpu").add_edges_from(src, dst)
+    nodes = np.asarray(ref.graph.node_map)
+    es, ed = np.asarray(ref.graph.src), np.asarray(ref.graph.dst)
+    lab = rng.choice(["l1", "l2", "l3"], size=len(nodes))
+    rel = rng.choice(["follows", "likes"], size=len(es), p=[0.7, 0.3])
+    age = rng.integers(0, 60, len(nodes))
+    w = rng.random(len(es))
+    for pg in (ref, port):
+        pg.add_node_labels(nodes, lab)
+        pg.add_edge_relationships(nodes[es], nodes[ed], rel)
+        pg.add_node_properties("age", nodes, age)
+        pg.add_edge_properties("w", nodes[es], nodes[ed], w)
+        pg.match(OV_PATTERNS[0][1])  # seal both stores
+    meta = {"nodes": nodes, "src": nodes[es], "dst": nodes[ed], "labels": lab, "rels": rel}
+    return ref, port, meta
+
+
+def overlay_stream(seed: int, meta: dict) -> list:
+    """A seeded mutation stream of every overlay write kind, as
+    ``(method, args)`` steps (and the markers ``("snapshot",)`` and
+    ``("fork",)``): inserts with base duplicates (dedup), relationships and
+    labels with values first seen after the seal, base and delta edge
+    deletes, revivals with relationships on the revived edges, vertex
+    deletes, property updates (delta edges included), then, on a fork,
+    more inserts, labels and a delete.  Every endpoint exists and is alive,
+    and every insert's fresh-pair count is fixed, so all seeds give graphs
+    of the same shapes."""
+    rng = np.random.default_rng(seed + 3000)
+    nodes = meta["nodes"]
+    base = list(zip(meta["src"].tolist(), meta["dst"].tolist()))
+    seen = set(base)
+    dead_v = set()
+
+    def pick(seq, k):
+        return [seq[i] for i in rng.choice(len(seq), k, replace=False)]
+
+    def fresh(k):
+        alive = [u for u in nodes.tolist() if u not in dead_v]
+        out = []
+        while len(out) < k:
+            p = (int(rng.choice(alive)), int(rng.choice(alive)))
+            if p not in seen:
+                seen.add(p)
+                out.append(p)
+        return out
+
+    def cols(pairs):
+        return np.array([p[0] for p in pairs]), np.array([p[1] for p in pairs])
+
+    ops = []
+    new = fresh(12)
+    ops.append(("insert_edges", cols(new + pick(base, 3))))
+    rel_pairs = pick(new, 8) + pick(base, 6)
+    ops.append(("add_edge_relationships",
+                (*cols(rel_pairs), rng.choice(["follows", "likes", "mentions"], len(rel_pairs)))))
+    ops.append(("add_node_labels",
+                (rng.choice(nodes, 10, replace=False), rng.choice(["l1", "l2", "l3", "zz"], 10))))
+    ops.append(("snapshot",))
+    gone_base, gone_delta = pick(base, 5), pick(new, 2)
+    ops.append(("delete_edges", cols(gone_base + gone_delta)))
+    revived = gone_base[:2] + gone_delta[:1]
+    ops.append(("insert_edges", cols(revived)))
+    ops.append(("add_edge_relationships", (*cols(revived), np.array(["likes"] * 3))))
+    dv = rng.choice(nodes, 2, replace=False)
+    dead_v.update(dv.tolist())
+    ops.append(("delete_vertices", (dv,)))
+    ops.append(("update_node_properties",
+                ("age", rng.choice(nodes, 6, replace=False), rng.integers(0, 60, 6))))
+    upd = pick([p for p in base if p not in gone_base], 3) + pick(new[2:], 3)
+    ops.append(("update_edge_properties", ("w", *cols(upd), rng.random(6))))
+    ops.append(("fork",))
+    ops.append(("insert_edges", cols(fresh(6))))
+    ops.append(("add_node_labels", (rng.choice(nodes, 5, replace=False), np.array(["zz"] * 5))))
+    ops.append(("delete_vertices", (rng.choice([u for u in nodes if u not in dead_v], 1),)))
+    return ops
+
+
+def assert_same_counts(ref, port) -> None:
+    """Label and relationship counts, and both stores' per-attribute stats
+    with their dtype, equal the reference's (tombstones subtracted)."""
+    assert port.label_counts() == ref.label_counts()
+    assert port.relationship_counts() == ref.relationship_counts()
+    for store, dead in (("_vstore", "_dead_vertex_ids"), ("_estore", "_dead_edge_ids")):
+        for kw in ({}, {"dead_ids": getattr(ref, dead)()}):
+            got = getattr(port, store).attr_counts(**kw)
+            want = getattr(ref, store).attr_counts(**kw)
+            assert got.dtype == want.dtype and np.array_equal(got, want), (store, kw)
+
+
+def assert_same_overlay(ref, port, kinds=OV_PATTERNS) -> None:
+    """The request kinds' matches (bitwise, the effective edge universe in
+    the same base ++ delta order), counts, sizes and overlay stats agree."""
+    assert (port.n_vertices, port.n_edges) == (ref.n_vertices, ref.n_edges)
+    assert port.delta_stats() == ref.delta_stats()
+    for _, text in kinds:
+        assert_same_match(ref.match(text), port.match(text))
+    assert_same_counts(ref, port)
+
+
+def flat_state(pg) -> dict:
+    """A graph's whole state on the host in ``to_arrays``' layout, for any
+    backend and either package: the DI fields, each store's values and
+    distinct (entity, attribute) pairs, and the typed columns."""
+    g = pg.graph
+
+    def store(s):
+        ent, att = s.all_pairs()
+        keys = np.unique((np.asarray(ent, np.int64) << 31) | np.asarray(att, np.int64))
+        return {"values": list(s.amap.values), "n": s.n, "keys": keys}
+
+    def cols(kind, props):
+        if hasattr(pg, "host_columns"):  # the port holds uint32 columns as int64
+            return pg.host_columns(kind)
+        return {k: (as_np(c), as_np(v)) for k, (c, v) in props.items()}
+
+    return {"graph": {f: as_np(getattr(g, f)) for f in ("src", "dst", "seg", "node_map")},
+            "nm": (g.n, g.m, g.max_deg), "vstore": store(pg._vstore), "estore": store(pg._estore),
+            "vertex_props": cols("node", pg.vertex_props),
+            "edge_props": cols("edge", pg.edge_props)}
+
+
+def assert_same_flat(a: dict, b: dict) -> None:
+    assert a["nm"] == b["nm"]
+    for f in a["graph"]:
+        np.testing.assert_array_equal(a["graph"][f], b["graph"][f])
+    for s in ("vstore", "estore"):
+        assert a[s]["values"] == b[s]["values"] and a[s]["n"] == b[s]["n"]
+        np.testing.assert_array_equal(a[s]["keys"], b[s]["keys"])
+    for p in ("vertex_props", "edge_props"):
+        assert set(a[p]) == set(b[p])
+        for name in a[p]:
+            for x, y in zip(a[p][name], b[p][name]):
+                assert x.dtype == y.dtype, (p, name)
+                np.testing.assert_array_equal(x, y)
+
+
+class DictRegistry:
+    """A dict-backed graph registry: what the overlay's ``Compactor`` sweeps
+    (``names()``/``get(name)``; the service's registry comes with its port)."""
+
+    def __init__(self, **graphs):
+        self._graphs = dict(graphs)
+
+    def register(self, name, pg):
+        self._graphs[name] = pg
+
+    def names(self):
+        return list(self._graphs)
+
+    def get(self, name):
+        return self._graphs[name]

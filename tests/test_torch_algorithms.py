@@ -51,6 +51,16 @@ def test_triangle_count_and_degree_histogram(seed):
     assert same(pa.triangle_count(port.graph, max_deg=max_deg), want)
     # fewer lanes than the widest window: both count only the lanes they read
     assert same(pa.triangle_count(port.graph, max_deg=2), ra.triangle_count(ref.graph, max_deg=2))
+    # no lanes at all (ROADMAP C.17): an int32 zero, not a reshape error
+    assert same(pa.triangle_count(port.graph, max_deg=0), ra.triangle_count(ref.graph, max_deg=0))
+    # the edgeless graph at its own widest window, which is 0
+    from repro.core.di import build_di as ref_build_di
+    from repro_torch.core.di import build_di as port_build_di
+
+    eg_ref, eg_port = ref_build_di([], []), port_build_di([], [], device="cpu")
+    assert eg_port.max_deg == eg_ref.max_deg == 0
+    assert same(pa.triangle_count(eg_port, max_deg=eg_port.max_deg),
+                ra.triangle_count(eg_ref, max_deg=eg_ref.max_deg))
     for n_bins in (3, 64):
         assert same(pa.degree_histogram(port.graph, n_bins=n_bins),
                     ra.degree_histogram(ref.graph, n_bins=n_bins))
@@ -66,13 +76,26 @@ def test_typed_algorithms_match_reference(seed):
             assert same(pta.khop_typed(port.graph, torch.tensor(seeds), torch.from_numpy(em), k=k),
                         rta.khop_typed(ref.graph, jnp.asarray(seeds), jnp.asarray(em), k=k))
     (pc, pl), (rc, rl) = pta.label_histogram(port), rta.label_histogram(ref)
-    assert np.array_equal(pc, np.asarray(rc)) and pl == rl
+    assert same(pc, rc) and pl == rl
     for rels, mi in ((["r"], 64), (["s"], 2), (["r", "s"], 64)):
         assert same(pta.typed_components(port, rels, max_iters=mi),
                     rta.typed_components(ref, rels, max_iters=mi))
     for labels in (["x"], ["x", "y"], ["nope"]):
         assert pta.attribute_assortativity(port, labels) == rta.attribute_assortativity(
             ref, labels)
+
+
+@pytest.mark.parametrize("backend", ["arr", "list", "listd"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_label_histogram_and_attr_counts_keep_the_reference_dtype(backend, seed):
+    """The per-attribute statistics equal the reference's in dtype and
+    values on every store (ROADMAP C.18: listd's are int32, read off
+    ``a_off``; arr's and list's int64)."""
+    ref, port, _ = analytics_pair(seed, backend=backend)
+    (pc, pl), (rc, rl) = pta.label_histogram(port), rta.label_histogram(ref)
+    assert same(pc, rc) and pl == rl
+    for store in ("_vstore", "_estore"):
+        assert same(getattr(port, store).attr_counts(), getattr(ref, store).attr_counts())
 
 
 @pytest.mark.parametrize("k", [1, 2])

@@ -36,6 +36,14 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     assert len(MODULES) >= 20
 
 
+def test_the_overlay_and_obs_modules_are_covered():
+    """The import check above walks the whole package: the overlay and the
+    metrics module it records into are among the modules it imports."""
+    for mod in ("repro_torch.overlay", "repro_torch.overlay.delta", "repro_torch.overlay.views",
+                "repro_torch.overlay.compactor", "repro_torch.obs", "repro_torch.obs.metrics"):
+        assert mod in MODULES, mod
+
+
 def test_no_port_source_names_jax_or_the_reference():
     """Neither the package nor the on-card smoke script (``chip_smoke.py``)."""
     pattern = re.compile(r"\bjax\b|\bjaxlib\b|\brepro\.|from repro import|import repro\b")

@@ -247,12 +247,15 @@ def test_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="mesh"):
         PropGraph(mesh=object(), device="cpu")
     _, port = build_pair(raw_inputs(0))
-    with pytest.raises(NotImplementedError, match="overlay"):
-        port.add_node_labels(as_np(port.graph.node_map)[:2], "late")  # store already sealed
     with pytest.raises(NotImplementedError, match="observability"):
         port.explain_analyze("(a:rare)-[:likes]->(b)")
-    with pytest.raises(NotImplementedError, match="overlay"):
-        port.snapshot()
+    # the overlay is ported: a write after the seal lands in the delta, and
+    # a snapshot refuses writes
+    port.add_node_labels(as_np(port.graph.node_map)[:2], "late")
+    assert port._vstore.sealed and port._vstore._delta.size == 2
+    assert int(port.query_labels(["late"]).sum()) == 2
+    with pytest.raises(RuntimeError, match="frozen"):
+        port.snapshot().add_node_labels(as_np(port.graph.node_map)[:1], "later")
 
 
 def test_version_and_mutation_hooks():
