@@ -119,7 +119,22 @@ none of whose failures is caught:
    kernel's own time from the profiler (``ms`` also holds the host's time
    when a launch is shorter than the host's call); B1 and B2 also with
    every row selected; flash_attention also beside the mma.sync kernel it
-   replaced on the path.
+   replaced on the path;
+3h. last, after phase 5 (see ``run``), the service and wire layer over the
+   same graph (``service_phase``):
+   8 closed-loop client threads send 256 requests (zipf 1.1 over phase 3's
+   texts, ``pgserve.synthetic_workload``) through ``Service.submit`` with
+   both caches off (every request reaches the card; its fused masks
+   coalesce into B1 launches) and then with the default caches, timed
+   (p50, p95, QPS) beside ``run_sequential``; 9 sample requests of 1,024
+   ids (15-10, the ninth under the edge filter) through
+   ``Service.sample_batch`` (one B3 launch of 16 rows for their layer 0)
+   and as 9 concurrent ``submit_sample`` calls; a ``PGServer`` on
+   127.0.0.1 answering the port's ``PGClient`` (the six kinds, a
+   pipelined burst of 32 with duplicates, metrics, a trace id); EXPLAIN
+   ANALYZE twice; every answer bitwise phase 3's, every sample its solo
+   run's; then ``python -m repro_torch.launch.pgserve --smoke`` and
+   ``--net --smoke`` as subprocesses on the card.
 
 Kernel launch counts are zeroed right before each path and read right
 after it; a kernel of the path that did not launch fails the run.  The
@@ -1478,6 +1493,266 @@ def overlay_phase(pg, cpu_pg, results, seed: int, device: str, sync) -> dict:
           "3g graph1: compaction equals a from-scratch build of the surviving state")
     out["graph1"] = {"n": g1.n_vertices, "m": g1.n_edges, "check": "bitwise"}
     del g1, g1_cpu, scratch
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ------------------------------------------------------- phase 3h: the service
+SERVICE_CLIENTS = 8  # closed-loop client threads
+SERVICE_REQUESTS = 256  # zipf 1.1 over phase 3's texts (pgserve.synthetic_workload)
+SERVICE_SAMPLES = 9  # coalesced sample requests of 1,024 ids; the last under GNN_FILTER
+SERVICE_CLI_TIMEOUT = 300  # seconds for each pgserve gate run as a subprocess
+
+
+@contextlib.contextmanager
+def counting_launches():
+    """B1 and B3 launches inside the block (``launches`` on exit), and the Q
+    of every B1 call and the seed shape of every B3 call, from the
+    wrappers."""
+    from repro_torch.kernels.bitmap_query import ops
+    from repro_torch.kernels.neighbor_sample import ops as ns_ops
+
+    rec = {"b1_q": [], "b3_rows": [], "launches": None}
+    saved = ops.bitmap_query_batched_packed, ns_ops.window_select
+
+    def b1(plane, attr_masks):
+        rec["b1_q"].append(int(attr_masks.shape[0]))
+        return saved[0](plane, attr_masks)
+
+    def b3(start, deg, dst, ew_words, pri, *, fanout):
+        rec["b3_rows"].append(tuple(start.shape))
+        return saved[1](start, deg, dst, ew_words, pri, fanout=fanout)
+
+    ops.reset_launches()
+    ns_ops.reset_launches()
+    ops.bitmap_query_batched_packed, ns_ops.window_select = b1, b3
+    try:
+        yield rec
+    finally:
+        ops.bitmap_query_batched_packed, ns_ops.window_select = saved
+        rec["launches"] = {"b1": ops.launches[ops.PACKED],
+                           "b3": ns_ops.launches[ns_ops.WINDOW_SELECT]}
+
+
+def same_result_on(a, b) -> bool:
+    """``same_result`` without leaving the card: masks and bindings of two
+    MatchResults on one device equal bit for bit."""
+    import torch
+
+    if not (torch.equal(a.vertex_mask, b.vertex_mask) and torch.equal(a.edge_mask, b.edge_mask)):
+        return False
+    ba, bb = a.bindings(), b.bindings()
+    return set(ba) == set(bb) and all(torch.equal(ba[k], bb[k]) for k in ba)
+
+
+def same_wire(w, r) -> bool:
+    """A ``WireMatchResult`` (numpy) equals a MatchResult bit for bit."""
+    rb, wb = r.bindings(), w.bindings()
+    return (np.array_equal(w.vertex_mask, r.vertex_mask.cpu().numpy())
+            and np.array_equal(w.edge_mask, r.edge_mask.cpu().numpy())
+            and set(rb) == set(wb)
+            and all(np.array_equal(wb[k], rb[k].cpu().numpy()) for k in rb))
+
+
+def closed_loop(svc, workload):
+    """``SERVICE_CLIENTS`` closed-loop client threads over ``workload``
+    through ``Service.submit`` (pgserve's harness); returns its metrics and
+    every (text, answer) pair, checked after the clock stops."""
+    import threading
+
+    from repro_torch.launch import pgserve
+
+    answers, lock = [], threading.Lock()
+
+    def make_session():
+        def call(graph, text):
+            res = svc.submit(graph, text).result(timeout=120)
+            with lock:
+                answers.append((text, res))
+        return call, (lambda: None)
+
+    return pgserve._run_closed_loop(make_session, workload, SERVICE_CLIENTS), answers
+
+
+def service_phase(pg, reqs, results, seed: int, device: str, sync) -> dict:
+    """Phase 3h (module docstring): the service and wire layer over ``pg``;
+    ``reqs`` and ``results`` are phase 3's texts and answers on ``pg``."""
+    import torch
+
+    from repro_torch.launch import pgserve
+    from repro_torch.obs import parse_prometheus
+    from repro_torch.service import PGClient, PGServer, Service, ServiceConfig, wire
+
+    t_phase = time.perf_counter()
+    out = {"mem_before_gib": torch.cuda.memory_allocated() / 2**30 if device == "cuda" else None}
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    texts = [t for _, t in reqs]
+    want = dict(zip(texts, results))
+    workload = pgserve.synthetic_workload(["graph3"], texts, SERVICE_REQUESTS, seed=seed)
+    b1 = b3 = 0
+    b1_q = []
+
+    def keep(rec):
+        nonlocal b1, b3
+        b1 += rec["launches"]["b1"]
+        b3 += rec["launches"]["b3"]
+        b1_q.extend(rec["b1_q"])
+
+    # (1) the closed loop with both caches off: every request reaches the card
+    cfg = ServiceConfig(plan_cache_size=0, result_cache_size=0)
+    with Service(config=cfg) as svc:
+        svc.add_graph("graph3", pg)
+        with counting_launches() as rec:
+            loop, answers = closed_loop(svc, workload)
+        keep(rec)
+        st = svc.stats()
+    check(len(answers) == SERVICE_REQUESTS and all(same_result_on(r, want[t]) for t, r in answers),
+          "3h caches off: every answer equals phase 3's bit for bit")
+    del answers
+    check(st.get("coalesced_launches", 0) > 0, "3h caches off: requests were coalesced")
+    check(st.get("traversal_fallback_requests", 0) > 0,
+          "3h caches off: the *1..3 and * kinds ran per request")
+    if device == "cuda":
+        check(rec["launches"]["b1"] > 0 and max(rec["b1_q"]) > 1,
+              "3h caches off: B1 launched on the service path with Q > 1")
+    out["caches_off"] = {**loop, **{k: st.get(k, 0) for k in (
+        "coalesced_launches", "coalesced_masks", "traversal_fallback_requests", "batches",
+        "batched_requests", "completed")},
+        "coalesce_width": st.get("pg_sched_coalesce_width"),
+        "b1_launches": rec["launches"]["b1"], "b1_max_q": max(rec["b1_q"], default=0)}
+    out["sequential"] = pgserve.run_sequential({"graph3": pg}, workload)
+
+    # (2) the same stream with the default caches
+    with Service() as svc:
+        svc.add_graph("graph3", pg)
+        with counting_launches() as rec:
+            loop, answers = closed_loop(svc, workload)
+        keep(rec)
+        st = svc.stats()
+        svc.result_cache.clear()
+    check(len(answers) == SERVICE_REQUESTS and all(same_result_on(r, want[t]) for t, r in answers),
+          "3h caches on: every answer equals phase 3's bit for bit")
+    del answers
+    out["caches_on"] = {**loop, **{k: st.get(k, 0) for k in (
+        "result_hits", "result_misses", "fastpath_hits", "dedup_hits", "coalesced_launches")},
+        "b1_launches": rec["launches"]["b1"]}
+    if device == "cuda":
+        out["mem_peak_gib_caches"] = torch.cuda.max_memory_allocated() / 2**30
+
+    # (3) coalesced sampling: 9 requests of 1,024 ids, one (fanouts, bucket) group
+    nodes = pg.graph.node_map.cpu().numpy()
+    rng = np.random.default_rng(seed + 11)
+    specs = [(rng.choice(nodes, 1024, replace=False), i,
+              GNN_FILTER if i == SERVICE_SAMPLES - 1 else None) for i in range(SERVICE_SAMPLES)]
+    with Service() as svc:
+        svc.add_graph("graph3", pg)
+        n0 = svc.stats().get("sample_coalesced_launches", 0)
+        with counting_launches() as rec:
+            sync()
+            t0 = time.perf_counter()
+            batch = svc.sample_batch("graph3", specs, FANOUTS)
+            sync()
+            batch_ms = (time.perf_counter() - t0) * 1e3
+        keep(rec)
+        check(svc.stats()["sample_coalesced_launches"] == n0 + 1,
+              "3h sample_batch: the 9 requests took one coalesced launch")
+        if device == "cuda":
+            check((16, 1024) in rec["b3_rows"],
+                  "3h sample_batch: B3 launched with R = 9 (16 rows of 1,024) on the service path")
+        with counting_launches() as rec2:
+            sync()
+            t0 = time.perf_counter()
+            futs = [svc.submit_sample("graph3", ids, FANOUTS, seed=sv, pattern=filt)
+                    for ids, sv, filt in specs]
+            concurrent = [f.result(timeout=120) for f in futs]
+            sync()
+            concurrent_ms = (time.perf_counter() - t0) * 1e3
+        keep(rec2)
+        sample_stats = svc.stats()
+    for (ids, sv, filt), a, b in zip(specs, batch, concurrent):
+        solo = pg.sample(ids, FANOUTS, seed=sv, pattern=filt)
+        check(same_blocks(a, solo) and same_blocks(b, solo),
+              f"3h sample {sv}: coalesced blocks equal the solo sample bit for bit")
+    out["samples"] = {"batch_ms": batch_ms, "concurrent_ms": concurrent_ms,
+                      "b3_rows": rec["b3_rows"], "b3_rows_concurrent": rec2["b3_rows"],
+                      "sample_coalesced_launches": sample_stats["sample_coalesced_launches"]}
+    del batch, concurrent
+
+    # (4) the wire at full size: a PGServer on 127.0.0.1 and the port's client
+    kinds = reqs[:6]
+    with Service() as svc:
+        svc.add_graph("graph3", pg)
+        server = PGServer(svc, host="127.0.0.1", port=0, device=device).start()
+        try:
+            with counting_launches() as rec, PGClient(port=server.port, timeout=300) as c:
+                check(c.ping(), "3h wire: ping")
+                for kind, text in kinds:
+                    check(same_wire(c.query("graph3", text), want[text]),
+                          f"3h wire {kind}: the answer equals phase 3's bit for bit")
+                burst = texts[:24] + texts[:8]  # duplicates coalesce server-side
+                for text, res in zip(burst, c.query_batch("graph3", burst)):
+                    check(same_wire(res, want[text]), "3h wire burst: bitwise phase 3's")
+                h = c.submit("graph3", kinds[0][1])
+                h.result(timeout=300)
+                check(h.trace is not None and h.trace["trace_id"] == h.trace_id,
+                      "3h wire: the client's trace id came back in the span tree")
+                lat = []
+                for _, text in reqs:
+                    t0 = time.perf_counter()
+                    c.query("graph3", text)
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                metrics = parse_prometheus(c.metrics())
+                st = c.stats()
+            keep(rec)
+            check(metrics["pg_service_completed_total"] == st["completed"],
+                  "3h wire: the metrics verb agrees with stats()")
+        finally:
+            server.close(timeout=30)
+        meta, arrays = wire.result_to_wire(want[kinds[0][1]])
+        sizes = [len(wire._pack_array(a)[1]) for a in arrays[:2]]
+        check(sizes == [(pg.n_vertices + 7) // 8, (pg.n_edges + 7) // 8],
+              f"3h wire: packed mask payloads are ceil(n/8) bytes ({sizes})")
+        svc.result_cache.clear()
+    out["wire"] = {"p50_ms": statistics.median(lat), "p95_ms": float(np.percentile(lat, 95)),
+                   "vertex_mask_bytes": sizes[0], "edge_mask_bytes": sizes[1],
+                   "completed": st["completed"]}
+
+    # (5) EXPLAIN ANALYZE of the fused 1-hop text, twice; on the card the first
+    # follows an emptied allocator cache, so its first call pays the first blocks
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    with counting_launches() as rec:
+        rep1 = pg.explain_analyze(kinds[0][1])
+        rep2 = pg.explain_analyze(kinds[0][1])
+    keep(rec)
+    for rep in (rep1, rep2):
+        check(rep.total_first_ms >= rep.steady_ms >= 0, "3h explain_analyze: first ≥ steady ≥ 0")
+    if device == "cuda":
+        check(rep2.compile_ms <= rep1.compile_ms,
+              "3h explain_analyze: the second report's first-call share is not above the first's")
+    out["explain_analyze"] = [rep1.to_dict(), rep2.to_dict()]
+    print("phase 3h explain_analyze", json.dumps(out["explain_analyze"]), flush=True)
+
+    # (6) the CLI's gates as subprocesses on the device
+    out["b1_launches"], out["b3_launches"], out["b1_max_q"] = b1, b3, max(b1_q, default=0)
+    out["cli_s"] = {}
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src") + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    for mode, ok_line in ((["--smoke"], "PGSERVE SMOKE OK"),
+                          (["--net", "--smoke"], "PGSERVE NET SMOKE OK")):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.pgserve", *mode,
+                               "--device", device], capture_output=True, text=True, env=env,
+                              timeout=SERVICE_CLI_TIMEOUT, cwd=ROOT)
+        out["cli_s"][" ".join(mode)] = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        check(proc.returncode == 0 and lines and lines[-1] == ok_line,
+              f"3h pgserve {' '.join(mode)} exits 0 with {ok_line!r}: rc {proc.returncode}\n"
+              f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    if device == "cuda":
+        out["mem_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["mem_after_gib"] = torch.cuda.memory_allocated() / 2**30
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -2972,10 +3247,41 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
             entry["share_of_bound"] = entry["bound_ms"] / entry["device_ms"]
             if "device_ms_cold_l2" in entry:
                 entry["share_of_bound_cold_l2"] = entry["bound_ms"] / entry["device_ms_cold_l2"]
+    del b4_calls, b6_calls
+
+    # --- phase 3h: the service and wire layer over the same graph.  It runs after phase 5:
+    # placed after 3g it aged the process by its 40 s and two subprocesses, and phase 5's
+    # profiler sessions then lost every B1 record of a timing (on_card; PERF.md §6).
+    out["service"] = service_phase(pg, reqs, results, seed, device, sync)
+    svc_out = out["service"]
+    print("phase 3h timings", json.dumps({
+        "phase_s": svc_out["phase_s"],
+        **{k: {m: svc_out[k][m] for m in ("p50_ms", "p95_ms", "qps")}
+           for k in ("caches_off", "caches_on")},
+        "sequential_qps": svc_out["sequential"]["qps"],
+        "sample_batch_ms": svc_out["samples"]["batch_ms"],
+        "sample_concurrent_ms": svc_out["samples"]["concurrent_ms"],
+        "wire_p50_ms": svc_out["wire"]["p50_ms"], "cli_s": svc_out["cli_s"],
+        **{k: svc_out.get(k) for k in ("mem_before_gib", "mem_peak_gib", "mem_after_gib")}}),
+        flush=True)
+    print("phase 3h ok: every service and wire answer equals phase 3's bit for bit, coalesced",
+          "samples equal their solo runs, both pgserve gates passed", json.dumps({
+              "b1_launches": svc_out["b1_launches"], "b1_max_q": svc_out["b1_max_q"],
+              "b3_launches": svc_out["b3_launches"],
+              "coalesce_width": svc_out["caches_off"]["coalesce_width"],
+              "result_hits": svc_out["caches_on"]["result_hits"],
+              "dedup_hits": svc_out["caches_on"]["dedup_hits"]}), flush=True)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    if device == "cuda":
+        for entry, launches in ((b1, svc_out["b1_launches"]), (b3, svc_out["b3_launches"])):
+            entry["launches_by_path"]["service"] = launches
+            entry["launches"] += launches
         out["peak_mem_gib"] = max(torch.cuda.max_memory_allocated() / 2**30,
                                   out["gnn"]["peak_mem_gib"], out["gnn"]["peak_mem_gib_before"],
-                                  out["recsys"]["peak_mem_gib"], out["lm"]["peak_mem_gib"])
-    del b4_calls, b6_calls
+                                  out["recsys"]["peak_mem_gib"], out["lm"]["peak_mem_gib"],
+                                  svc_out["mem_peak_gib"])
     return out
 
 

@@ -22,8 +22,9 @@ This port covers one device: ingest, ``match()``, ``sample()``, the
 frontier analytics (``khop``, ``components``, ``shortest_paths``,
 ``pagerank``, ``communities``) and the overlay (docs/ARCHITECTURE.md §11:
 writes after a store sealed, ``insert_edges``, tombstones, property
-updates, ``snapshot``/``fork``, ``compact``) on every backend.  Meshes and
-the observability layer's EXPLAIN ANALYZE are not ported yet and raise
+updates, ``snapshot``/``fork``, ``compact``) on every backend, with EXPLAIN
+ANALYZE (``match(profile=True)``, ``explain_analyze``) and the
+analytics' run metrics.  Meshes are not ported yet and raise
 ``NotImplementedError``.
 
 Overlay reads compose before propagation: a sealed store answers
@@ -58,6 +59,9 @@ from repro_torch.core.queries import (
     gather,
     induce_edge_mask,
 )
+from repro_torch.obs.metrics import GLOBAL as _OBS
+from repro_torch.obs.metrics import SIZE_BUCKETS as _SIZE_BUCKETS
+from repro_torch.obs.metrics import enabled as _obs_enabled
 from repro_torch.overlay.delta import AttrDelta, EdgeDelta, MutationEvent, pair_keys, word_bits
 
 __all__ = ["PropGraph", "BACKENDS", "resolve_device"]
@@ -75,6 +79,40 @@ _NARROW = {
     np.dtype(np.float64): np.float32,
     np.dtype(np.complex128): np.complex64,
 }
+
+
+def _obs_traverse(op: str, rounds: Optional[int], seeds: Optional[int]) -> None:
+    """Frontier/semiring engine accounting (docs/ARCHITECTURE.md §13), under
+    the reference's metric names: per-op run counts, the relax rounds and
+    the seed-set size.  The reference records the loop's bound, because its
+    converged count lives inside a jitted loop; the port's loops read a
+    flag back each round anyway, so ``rounds`` is the count they ran (what
+    ``traverse.engine.rounds`` gained during the call).  Host-side only."""
+    if not _obs_enabled():
+        return
+    _OBS.counter("pg_traverse_runs", "frontier/semiring engine runs",
+                 op=op).inc()
+    if rounds is not None:
+        _OBS.histogram("pg_traverse_relax_rounds",
+                       "relax-round budget per run (loop bound)",
+                       buckets=_SIZE_BUCKETS, op=op).observe(rounds)
+    if seeds is not None:
+        _OBS.histogram("pg_traverse_seed_size",
+                       "seed/frontier-origin set size per run",
+                       buckets=_SIZE_BUCKETS, op=op).observe(seeds)
+
+
+def _observed(op: str, seeds, run):
+    """``run()``, recorded by ``_obs_traverse`` with the relax rounds it
+    ran and the size of ``seeds`` (None: an analytic without seeds)."""
+    from repro_torch.traverse import engine
+
+    r0 = sum(engine.rounds.values())
+    out = run()
+    n = None if seeds is None else (
+        seeds.numel() if torch.is_tensor(seeds) else int(np.asarray(seeds).size))
+    _obs_traverse(op, sum(engine.rounds.values()) - r0, n)
+    return out
 
 
 def _row_counts(host: dip_arr.DIPArr) -> np.ndarray:
@@ -1059,10 +1097,16 @@ class PropGraph:
         the DIP statistics and runs the mask pipeline.  Returns a
         ``MatchResult`` whose masks cover exactly the entities in at least
         one full match.  ``impl`` overrides the planner's per-mask choice.
+
+        ``profile=True`` returns ``(MatchResult, ProfileReport)`` instead —
+        the EXPLAIN ANALYZE path (docs/ARCHITECTURE.md §13): per-stage wall
+        times, the graph's device synchronized after each, with the first
+        call's one-off share measured by a steady-state re-run.
         """
         if profile:
-            raise NotImplementedError("match(profile=True) needs the observability layer, "
-                                      "which is not ported yet")
+            from repro_torch.obs.profile import profile_match
+
+            return profile_match(self, pattern, impl=impl)
         from repro_torch.query import execute_plan, parse, plan_pattern
 
         pat = parse(pattern) if isinstance(pattern, str) else pattern
@@ -1074,6 +1118,16 @@ class PropGraph:
 
         pat = parse(pattern) if isinstance(pattern, str) else pattern
         return plan_pattern(self, pat, impl=impl).describe()
+
+    def explain_analyze(self, pattern, *, impl: Optional[str] = None):
+        """EXPLAIN ANALYZE: run ``pattern`` and return a ``ProfileReport`` —
+        the executed plan annotated with measured per-stage times (parse /
+        plan / mask materialization / propagation) and the first call's
+        one-off share (``report.compile_ms`` / ``report.cold``).
+        ``report.describe()`` renders the plan with the timing table."""
+        from repro_torch.obs.profile import profile_match
+
+        return profile_match(self, pattern, impl=impl)[1]
 
     def subgraph(self, labels: Optional[Sequence[str]] = None,
                  relationships: Optional[Sequence[str]] = None, *,
@@ -1105,9 +1159,9 @@ class PropGraph:
         return filtered_bfs(g, srcs, edge_allowed=e_ok, vertex_allowed=v_ok, max_iters=max_iters)
 
     # -------------------------------------------------- frontier analytics
-    # The reference also records each run for the observability layer
-    # (``_obs_traverse``) and runs sharded under a mesh; both wait for their
-    # ports.
+    # Each run is recorded for the observability layer (``_obs_traverse``).
+    # The reference also runs them sharded under a mesh, which waits for its
+    # port.
     def khop(self, seeds, k: int, *, pattern=None, undirected: bool = False,
              impl: Optional[str] = None) -> torch.Tensor:
         """Vertices within ≤``k`` hops of ``seeds`` (original ids), following
@@ -1134,9 +1188,9 @@ class PropGraph:
         g, e_ok, direction = self._step_filter(pattern)
         ids = self._seed_ids(seeds)
         if impl == "csr" and direction == 1 and not undirected and not g.unsorted:
-            return traverse.khop_csr(g, ids, e_ok, k=k)
-        return traverse.khop_mask(g, self._seed_mask(ids), e_ok, k=k,
-                                  direction=direction, undirected=undirected)
+            return _observed("khop", seeds, lambda: traverse.khop_csr(g, ids, e_ok, k=k))
+        return _observed("khop", seeds, lambda: traverse.khop_mask(
+            g, self._seed_mask(ids), e_ok, k=k, direction=direction, undirected=undirected))
 
     def _step_filter(self, pattern):
         """(graph, edge filter, direction) of a walk whose every step the
@@ -1334,7 +1388,8 @@ class PropGraph:
         from repro_torch import traverse
 
         g, v_ok, e_ok, _ = self._subgraph_filters(pattern)
-        return traverse.components_masked(g, v_ok, e_ok, max_iters=max_iters)
+        return _observed("components", None, lambda: traverse.components_masked(
+            g, v_ok, e_ok, max_iters=max_iters))
 
     def _weighted_edge_filter(self, e_ok, weight: Optional[str]):
         """Fold a numeric edge-property column into a traversal: (f32
@@ -1364,9 +1419,9 @@ class PropGraph:
 
         g, e_ok, direction = self._step_filter(pattern)
         w, e_ok = self._weighted_edge_filter(e_ok, weight)
-        return traverse.shortest_paths_masked(g, self._seed_mask(self._seed_ids(seeds)), w, e_ok,
-                                              direction=direction, undirected=undirected,
-                                              max_iters=max_iters)
+        return _observed("shortest_paths", seeds, lambda: traverse.shortest_paths_masked(
+            g, self._seed_mask(self._seed_ids(seeds)), w, e_ok, direction=direction,
+            undirected=undirected, max_iters=max_iters))
 
     def _subgraph_filters(self, pattern):
         """Whole-subgraph mask composition shared by the components-shaped
@@ -1407,8 +1462,8 @@ class PropGraph:
 
         g, v_ok, e_ok, direction = self._subgraph_filters(pattern)
         w, e_ok = self._weighted_edge_filter(e_ok, weight)
-        return traverse.pagerank_masked(g, v_ok, e_ok, w, damping=damping, iters=iters,
-                                        direction=direction)
+        return _observed("pagerank", None, lambda: traverse.pagerank_masked(
+            g, v_ok, e_ok, w, damping=damping, iters=iters, direction=direction))
 
     def communities(self, pattern=None, *, max_iters: int = 64) -> torch.Tensor:
         """Community labels by synchronous label propagation on the
@@ -1421,7 +1476,8 @@ class PropGraph:
         from repro_torch import traverse
 
         g, v_ok, e_ok, _ = self._subgraph_filters(pattern)
-        return traverse.label_propagation_masked(g, v_ok, e_ok, max_iters=max_iters)
+        return _observed("communities", None, lambda: traverse.label_propagation_masked(
+            g, v_ok, e_ok, max_iters=max_iters))
 
     # ------------------------------------------- snapshots / views / overlay
     def snapshot(self) -> "PropGraph":
@@ -1584,13 +1640,3 @@ class PropGraph:
         counts = self._attr_counts("edge")
         return {v: int(counts[i]) for i, v in enumerate(self._estore.amap.values)}
 
-
-def _not_ported(name: str, part: str):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(f"PropGraph.{name} needs {part}, which is not ported yet")
-
-    method.__name__ = name
-    return method
-
-
-PropGraph.explain_analyze = _not_ported("explain_analyze", "the observability layer")

@@ -40,6 +40,8 @@ import torch
 
 from repro_torch.core import bitplane
 from repro_torch.kernels.neighbor_sample import kernel, ref
+from repro_torch.obs.metrics import GLOBAL as _OBS
+from repro_torch.obs.metrics import enabled as _obs_enabled
 
 __all__ = [
     "SEED_BUCKET_MIN",
@@ -63,6 +65,14 @@ REQUEST_BUCKETS = (1, 2, 4, 8, 16, 32)  # coalesced-group R buckets
 WINDOW_SELECT = "window_select"  # B3
 launches: Dict[str, int] = {WINDOW_SELECT: 0}
 _SEEN_KEYS: set = set()
+# the reference's sampler accounting (docs/ARCHITECTURE.md §13): a call is
+# a "launch" and a (kind, static shapes) key not seen before a
+# "compile"; the port builds no program per shape, so here the second
+# counts the distinct shapes the process has sampled at
+_M_COMPILES = _OBS.counter(
+    "pg_sample_compiles", "distinct neighbor_sample program specializations")
+_M_LAUNCHES = _OBS.counter(
+    "pg_sample_launches", "neighbor_sample device launches")
 
 
 def reset_launches() -> None:
@@ -101,8 +111,15 @@ def bucketed_requests(r: int) -> int:
 
 
 def _note_launch(kind: str, shape_key: tuple) -> None:
-    """Record the (kind, static shapes) of a sampling call."""
-    _SEEN_KEYS.add((kind,) + shape_key)
+    """Record the (kind, static shapes) of a sampling call; with metrics on,
+    count the call and, for a key not seen before, a new shape."""
+    key = (kind,) + shape_key
+    new = key not in _SEEN_KEYS
+    _SEEN_KEYS.add(key)
+    if _obs_enabled():
+        _M_LAUNCHES.inc()
+        if new:
+            _M_COMPILES.inc()
 
 
 def sample_compile_count() -> int:

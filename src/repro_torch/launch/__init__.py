@@ -1,2 +1,2 @@
 """repro_torch.launch — launchers.  Ported so far: the LM serving demo
-(``serve``)."""
+(``serve``) and the graph analytics service's driver (``pgserve``)."""

@@ -1,9 +1,18 @@
-"""repro_torch.obs — the observability layer's metrics (docs/ARCHITECTURE.md §13).
+"""repro_torch.obs — observability layer (docs/ARCHITECTURE.md §13).
 
-``obs.metrics`` holds thread-safe counters, gauges and fixed-bucket
-histograms in per-owner and process-``GLOBAL`` registries, with Prometheus
-text exposition and a module-level switch (``set_enabled(False)``).  The
-per-query traces and EXPLAIN ANALYZE come with the service's port.
+One instrumentation vocabulary for the whole port, with the reference's
+metric names:
+
+* ``obs.metrics`` — thread-safe counters / gauges / fixed-bucket
+  histograms in per-``Service`` and process-``GLOBAL`` registries, with
+  Prometheus text exposition and a module-level kill switch
+  (``set_enabled(False)`` → every call site degrades to one branch).
+* ``obs.trace`` — per-query span trees (parse→plan→cache→batch→execute→
+  serialize) with wire-propagated trace ids, a bounded trace ring and a
+  slow-query log.
+* ``obs.profile`` — EXPLAIN ANALYZE: executed plans annotated with
+  per-stage wall times and the measured first-call share, the graph's
+  device synchronized after each stage.
 """
 from repro_torch.obs.metrics import (
     GLOBAL,
@@ -16,6 +25,8 @@ from repro_torch.obs.metrics import (
     render_prometheus,
     set_enabled,
 )
+from repro_torch.obs.profile import ProfileReport, profile_match
+from repro_torch.obs.trace import Span, Trace, TraceBuffer, new_trace_id
 
 __all__ = [
     "GLOBAL",
@@ -24,7 +35,13 @@ __all__ = [
     "Histogram",
     "MetricsRegistry",
     "enabled",
-    "set_enabled",
-    "render_prometheus",
     "parse_prometheus",
+    "render_prometheus",
+    "set_enabled",
+    "ProfileReport",
+    "profile_match",
+    "Span",
+    "Trace",
+    "TraceBuffer",
+    "new_trace_id",
 ]

@@ -2,8 +2,7 @@
 histograms — with Prometheus text exposition (docs/ARCHITECTURE.md §13).
 
 Pure Python, copied from the reference package's ``obs/metrics.py`` so that
-the port imports nothing of it; the overlay compactor records its sweeps
-here.  The service and wire consumers named below come with their port.
+the port imports nothing of it.
 
 One vocabulary for every subsystem's accounting instead of per-module
 ad-hoc dicts: the scheduler, the LRU caches, the executor and frontier

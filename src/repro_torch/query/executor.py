@@ -41,10 +41,19 @@ from repro_torch.core.queries import (
     induce_edge_mask_directed,
     scatter_or,
 )
+from repro_torch.obs.metrics import GLOBAL as _OBS
+from repro_torch.obs.metrics import enabled as _obs_enabled
 from repro_torch.query.plan import Plan
 from repro_torch.traverse.engine import frontier_step, reach_closure
 
 __all__ = ["MatchResult", "execute_plan", "execute_plan_with_masks"]
+
+# process-global execution accounting (docs/ARCHITECTURE.md §13), the
+# reference's names: host-side counts only, never a device sync
+_M_PLANS = _OBS.counter("pg_exec_plans", "plans run through propagation")
+_M_MASKS = _OBS.counter("pg_exec_mask_steps", "attribute mask steps materialized")
+_M_FUSED = _OBS.counter(
+    "pg_exec_fused_masks", "mask steps that rode a fused batched launch")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,11 +212,15 @@ def _propagate(g: DIGraph, cands, emasks, hops: Tuple[Tuple[int, int, int], ...]
 
 def _fused_step_sets(plan: Plan):
     """The (node steps, edge steps) riding the fused batched launches, plus
-    the fused slot-id sets."""
+    the fused slot-id sets — shared by the bool and packed materializers so
+    the ``pg_exec_fused_masks`` accounting is the same on both paths."""
     fused_n = set(plan.fused_node_slots)
     fused_e = set(plan.fused_edge_slots)
     nsteps = [s for s in plan.mask_steps if s.kind == "node" and s.slot in fused_n]
     esteps = [s for s in plan.mask_steps if s.kind == "edge" and s.slot in fused_e]
+    if _obs_enabled():
+        _M_MASKS.inc(len(plan.mask_steps))
+        _M_FUSED.inc(len(nsteps) + len(esteps))
     return fused_n, fused_e, nsteps, esteps
 
 
@@ -274,6 +287,8 @@ def _execute_plan_packed(pg, plan: Plan) -> "MatchResult":
     """Packed execution: store words → word-space predicate combine → ONE
     unpack at the propagation boundary."""
     g = pg._require_graph()
+    if _obs_enabled():
+        _M_PLANS.inc()
     node_words, edge_words = _materialize(pg, plan, "query_any_batched_words", "query_any_words")
     vpreds = [[] for _ in plan.pattern.nodes]
     epreds = [[] for _ in plan.pattern.edges]
@@ -306,8 +321,16 @@ def execute_plan_with_masks(pg, plan: Plan, label_masks: Dict[int, torch.Tensor]
                             rel_masks: Dict[int, torch.Tensor]) -> "MatchResult":
     """Stages 2–3 of ``execute_plan`` on PRE-MATERIALIZED bool attribute
     masks: ``label_masks[slot]`` / ``rel_masks[slot]`` replace the plan's
-    ``mask_steps`` outputs (missing slots mean "no attribute constraint")."""
+    ``mask_steps`` outputs (missing slots mean "no attribute constraint").
+
+    This is the service's coalescing entry (``service/scheduler.py``): a
+    micro-batch of requests materializes all its label/relationship masks
+    in one ``query_any_batched`` launch per store, then runs each request's
+    propagation here.  Masks computed from the same stores give bitwise
+    ``execute_plan``'s answer."""
     g = pg._require_graph()
+    if _obs_enabled():
+        _M_PLANS.inc()
     cands = []
     for slot in range(len(plan.pattern.nodes)):
         c = label_masks.get(slot, torch.ones(g.n, dtype=torch.bool, device=g.device))

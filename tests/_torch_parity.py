@@ -366,3 +366,56 @@ class DictRegistry:
 
     def get(self, name):
         return self._graphs[name]
+
+
+# ----------------------------------------------------------- the service (A9)
+SERVE_PATTERNS = (  # the reference service tests' mix, over pgserve's tenant graphs
+    "(a:l1|l2)-[:follows]->(b:l3)",
+    "(a:l0 {age > 30})-[:likes]->(b)",
+    "(a)<-[:likes]-(b:l4|l5)",
+    "(a:l6)-[:follows]->(b)-[:likes]->(c:l7)",
+)
+
+
+def service_pkg(name: str):
+    """The service-layer modules of one package, under one set of names:
+    ``"ref"`` (JAX) or ``"port"`` (torch, graphs on the CPU).  ``build``
+    makes ``pgserve.build_tenant_graph``'s tenant, ``server`` a ``PGServer``
+    over a service, on the CPU for the port."""
+    from types import SimpleNamespace
+
+    if name == "ref":
+        from repro import obs
+        from repro.launch import pgserve
+        from repro.overlay import compactor
+        from repro.service import PGClient, PGServer, Service, ServiceConfig, wire
+
+        def build(backend, m, seed):
+            return pgserve.build_tenant_graph(backend, m, seed=seed)
+
+        def server(svc):
+            return PGServer(svc, port=0)
+    else:
+        from repro_torch import obs
+        from repro_torch.launch import pgserve
+        from repro_torch.overlay import compactor
+        from repro_torch.service import PGClient, PGServer, Service, ServiceConfig, wire
+
+        def build(backend, m, seed):
+            return pgserve.build_tenant_graph(backend, m, seed=seed, device="cpu")
+
+        def server(svc):
+            return PGServer(svc, port=0, device="cpu")
+    return SimpleNamespace(name=name, obs=obs, pgserve=pgserve, Compactor=compactor.Compactor,
+                           Service=Service, ServiceConfig=ServiceConfig, PGServer=PGServer,
+                           PGClient=PGClient, wire=wire, build=build, server=server)
+
+
+def assert_same_blocks(a, b) -> None:
+    """Two sampled block lists equal field by field, layer by layer (either
+    package's ``SampledBlock`` or the wire's)."""
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        for f in ("src_nodes", "dst_nodes", "edge_src", "edge_dst", "edge_mask"):
+            u, v = as_np(getattr(x, f)), as_np(getattr(y, f))
+            assert u.shape == v.shape and np.array_equal(u, v), f

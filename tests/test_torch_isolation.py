@@ -2,9 +2,11 @@
 reference package, and its entry points default to the CUDA card without
 falling back to the CPU."""
 import os
+import queue
 import re
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import pytest
@@ -42,6 +44,54 @@ def test_the_overlay_and_obs_modules_are_covered():
     for mod in ("repro_torch.overlay", "repro_torch.overlay.delta", "repro_torch.overlay.views",
                 "repro_torch.overlay.compactor", "repro_torch.obs", "repro_torch.obs.metrics"):
         assert mod in MODULES, mod
+
+
+def test_the_service_modules_are_covered():
+    """The walk above imports the service, the wire layer and the CLI that
+    drives them."""
+    for mod in ("repro_torch.obs.trace", "repro_torch.obs.profile", "repro_torch.service",
+                "repro_torch.service.cache", "repro_torch.service.registry",
+                "repro_torch.service.scheduler", "repro_torch.service.service",
+                "repro_torch.service.wire", "repro_torch.service.client",
+                "repro_torch.service.server", "repro_torch.launch.pgserve"):
+        assert mod in MODULES, mod
+
+
+def test_the_spawned_server_imports_neither_jax_nor_the_reference():
+    """What ``spawn_server`` runs (``python -m repro_torch.launch.pgserve
+    --serve``), with ``jax`` and ``repro`` made unimportable: it builds its
+    graph, answers a query and a sample over TCP and shuts down cleanly."""
+    code = (
+        "import runpy, sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "sys.argv = ['pgserve', '--serve', '--port', '0', '--backends', 'arr',\n"
+        "            '--m', '300', '--device', 'cpu']\n"
+        "runpy.run_module('repro_torch.launch.pgserve', run_name='__main__')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')"
+        " and sys.modules[m] is not None)\n"
+        "print('IMPORTED', bad, flush=True)\n"
+    )
+    proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE, text=True,
+                            env={**os.environ, "PYTHONPATH": str(SRC)})
+    try:
+        first = queue.Queue()
+        threading.Thread(target=lambda: first.put(proc.stdout.readline()), daemon=True).start()
+        line = first.get(timeout=120)  # the handshake, or fail instead of hanging
+        assert line.startswith("PGSERVE LISTENING "), line
+        from repro_torch.service import PGClient
+
+        with PGClient(port=int(line.split()[-1]), timeout=120) as c:
+            assert c.query("arr", "(a:l1)-[:follows]->(b)").n_vertices() >= 0
+            assert len(c.sample("arr", [0, 1, 2], [2], seed=1)) == 1
+            c.shutdown()
+        out, _ = proc.communicate(timeout=120)
+        assert proc.returncode == 0
+        assert "IMPORTED []" in out, out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
 
 
 def test_no_port_source_names_jax_or_the_reference():

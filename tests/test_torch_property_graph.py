@@ -246,9 +246,11 @@ def test_unported_parts_raise():
         PropGraph(backend="nope", device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         PropGraph(mesh=object(), device="cpu")
+    from repro_torch.service import GraphRegistry
+
+    with pytest.raises(NotImplementedError, match="mesh"):  # the service's sharded reopen
+        GraphRegistry().load("g", "unread", mesh=object())
     _, port = build_pair(raw_inputs(0))
-    with pytest.raises(NotImplementedError, match="observability"):
-        port.explain_analyze("(a:rare)-[:likes]->(b)")
     # the overlay is ported: a write after the seal lands in the delta, and
     # a snapshot refuses writes
     port.add_node_labels(as_np(port.graph.node_map)[:2], "late")
