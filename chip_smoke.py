@@ -134,7 +134,19 @@ none of whose failures is caught:
    pipelined burst of 32 with duplicates, metrics, a trace id); EXPLAIN
    ANALYZE twice; every answer bitwise phase 3's, every sample its solo
    run's; then ``python -m repro_torch.launch.pgserve --smoke`` and
-   ``--net --smoke`` as subprocesses on the card.
+   ``--net --smoke`` as subprocesses on the card;
+3i. last, the entity mesh (``mesh_phase``): phase 3a's save of graph3
+   reopened with ``load_propgraph(path, backend=b, mesh=mesh)`` as ``arr``
+   (through ``GraphRegistry.load``), ``list`` and ``listd`` on a mesh of
+   ``MESH_SHARDS`` shards of the one card (and over every card when there
+   are several): load and seal timed, each shard's store bytes, no dense
+   store kept; phase 3's requests (p50, p95, QPS) bitwise phase 3's
+   answers; on ``arr`` k-hop (phase 3f's 1,024 seeds, k = 3, unfiltered
+   and filtered), directed shortest paths over ``w``, components,
+   communities and a sample of ``(a:l0)`` bitwise the single-device
+   graph's, PageRank within an L1 distance, 5 service requests bitwise;
+   one request on byte shards; each sharded query launches B1 (B2 on the
+   byte shards) once per shard, read from the wrappers' counters.
 
 Kernel launch counts are zeroed right before each path and read right
 after it; a kernel of the path that did not launch fails the run.  The
@@ -948,9 +960,194 @@ def stores_phase(pg, reqs, results, seed: int, device: str, sync) -> dict:
     check(same_blocks(blocks, pg.sample("(a:l0)", FANOUTS, key=seed)),
           "3a: the listd graph's blocks equal the arr graph's at the same key")
     del graphs, listd, blocks, linked, inverted, g
-    shutil.rmtree(tmp)
+    out["path"] = path  # kept for phase 3i, which removes it
     if device == "cuda":
         torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ------------------------------------------------------- phase 3i: the mesh
+MESH_SHARDS = 8  # P on one card: the reference CI's 8 forced host devices
+MESH_SERVICE_REQUESTS = 5
+
+
+@contextlib.contextmanager
+def counting_sharded_queries():
+    """Counts the sharded arr queries made inside the block: ``packed``
+    (each launches B1 once per shard on the card), ``byte`` (B2 once per
+    shard: the kernel and scan impls) and ``byte_matvec`` (a matmul per
+    shard: the planner's impl for an unfused mask of a byte store with
+    many rows)."""
+    from repro_torch.core import dip_shard
+
+    calls = {"packed": 0, "byte": 0, "byte_matvec": 0}
+    words, byte = dip_shard._arr_words_parts, dip_shard._arr_byte_parts
+
+    def counted_words(ss, masks):
+        calls["packed"] += 1
+        return words(ss, masks)
+
+    def counted_byte(ss, masks, impl):
+        calls["byte" if impl in ("scan", "kernel") else "byte_matvec"] += 1
+        return byte(ss, masks, impl)
+
+    dip_shard._arr_words_parts, dip_shard._arr_byte_parts = counted_words, counted_byte
+    try:
+        yield calls
+    finally:
+        dip_shard._arr_words_parts, dip_shard._arr_byte_parts = words, byte
+
+
+def single_device_answers(pg, seeds, seed: int) -> dict:
+    """What ``mesh_analytics`` holds the mesh graph to: the single-device
+    graph's answers, taken before the mesh's launches are counted."""
+    out = {name: pg.khop(seeds, ANALYTICS_K, pattern=pattern)
+           for name, pattern in (("khop", None), ("khop_filtered", ANALYTICS_EDGE_FILTER))}
+    out["shortest_paths"] = pg.shortest_paths(seeds, weight="w")
+    out["pagerank"] = pg.pagerank(weight="w")
+    out["components"], out["communities"] = pg.components(), pg.communities()
+    out["sample"] = pg.sample("(a:l0)", FANOUTS, key=seed)
+    return out
+
+
+def mesh_analytics(g, want: dict, seeds, seed: int, sync) -> dict:
+    """Phase 3i's analytics on the mesh graph ``g``, each timed warm (its
+    second run) and held to the single-device graph's answers ``want``."""
+    out = {}
+
+    def warm(name, fn):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        got = fn()
+        sync()
+        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        return got
+
+    for name, pattern in (("khop", None), ("khop_filtered", ANALYTICS_EDGE_FILTER)):
+        got = warm(name, lambda: g.khop(seeds, ANALYTICS_K, pattern=pattern))
+        check(got.equal(want[name]), f"3i: {name} equals the single-device graph's")
+    got = warm("shortest_paths", lambda: g.shortest_paths(seeds, weight="w"))
+    check(got.equal(want["shortest_paths"]),
+          "3i: directed shortest paths over w equal the single-device graph's")
+    got = warm("pagerank", lambda: g.pagerank(weight="w"))
+    out["pagerank_l1"] = float((got.double() - want["pagerank"].double()).abs().sum())
+    check(out["pagerank_l1"] <= PR_L1_TOL, f"3i: PageRank L1 {out['pagerank_l1']} <= {PR_L1_TOL}")
+    for name in ("components", "communities"):
+        got = warm(name, getattr(g, name))
+        check(got.equal(want[name]), f"3i: {name} equal the single-device graph's")
+    blocks = warm("sample", lambda: g.sample("(a:l0)", FANOUTS, key=seed))
+    check(same_blocks(blocks, want["sample"]),
+          "3i: the sample of (a:l0) equals the single-device graph's")
+    return out
+
+
+def mesh_phase(pg, reqs, results, path, seed: int, device: str, sync) -> dict:
+    """Phase 3i (module docstring): graph3 saved by phase 3a reopened on
+    entity meshes; ``results`` are phase 3's answers to ``reqs``."""
+    import torch
+
+    from repro_torch.core import bitplane, dip_shard
+    from repro_torch.core.io import load_propgraph
+    from repro_torch.kernels.bitmap_query import ops
+    from repro_torch.launch.mesh import make_entity_mesh
+    from repro_torch.service import GraphRegistry, Service
+
+    t_phase = time.perf_counter()
+    lead = (torch.device("cuda", torch.cuda.current_device()) if device == "cuda"
+            else torch.device(device))
+    meshes = {"one_card": make_entity_mesh(devices=[lead] * MESH_SHARDS)}
+    if device == "cuda" and torch.cuda.device_count() > 1:
+        meshes["all_cards"] = make_entity_mesh()
+    seeds = np.random.default_rng(seed + 11).choice(  # phase 3f's seeds
+        pg.graph.node_map.cpu().numpy(), ANALYTICS_SEEDS, replace=False)
+    want = single_device_answers(pg, seeds, seed)
+    out = {"launches": {ops.PACKED: 0, ops.BYTE: 0}}
+    texts = [t for _, t in reqs]
+
+    def count(res, calls, mesh, what):
+        res["b1_launches"], res["b2_launches"] = ops.launches[ops.PACKED], ops.launches[ops.BYTE]
+        res["sharded_queries"] = dict(calls)
+        out["launches"][ops.PACKED] += res["b1_launches"]
+        out["launches"][ops.BYTE] += res["b2_launches"]
+        if device == "cuda":
+            for kind, kernel in (("packed", ops.PACKED), ("byte", ops.BYTE)):
+                check(ops.launches[kernel] >= mesh.size * calls[kind],
+                      f"3i {what}: {kernel} launched once per shard of each {kind} query")
+
+    for label, mesh in meshes.items():
+        res_mesh = out[label] = {"P": mesh.size, "devices": [str(d) for d in mesh.devices]}
+        print("phase 3i mesh", json.dumps({"mesh": label, **res_mesh}), flush=True)
+        for backend in ("arr", "list", "listd") if label == "one_card" else ("arr",):
+            what = f"{label} {backend}"
+            ops.reset_launches()
+            with counting_sharded_queries() as calls:
+                sync()
+                t0 = time.perf_counter()
+                if backend == "arr":  # through the service's registry
+                    reg = GraphRegistry()
+                    g = reg.load("graph3", path, backend=backend, mesh=mesh)
+                else:
+                    g = load_propgraph(path, backend=backend, mesh=mesh)
+                sync()
+                t1 = time.perf_counter()
+                g._vstore.finalize()
+                g._estore.finalize()
+                sync()
+                res = res_mesh[backend] = {"load_s": t1 - t0, "seal_s": time.perf_counter() - t1}
+                res["shard_bytes"] = {k: list(dip_shard.store_bytes(s._sharded))
+                                      for k, s in (("vertex", g._vstore), ("edge", g._estore))}
+                check(all(s._store is None and s._host is None and s._sharded is not None
+                          for s in (g._vstore, g._estore)), f"3i {what}: no dense store kept")
+                for text in texts[:6]:  # warm
+                    g.match(text)
+                lat, got, total = answer(g, reqs, sync)
+                res.update(p50_ms=statistics.median(lat), p95_ms=float(np.percentile(lat, 95)),
+                           qps=len(reqs) / total)
+                check(all(same_result(a, b) for a, b in zip(got, results)),
+                      f"3i {what}: the {len(reqs)} requests equal phase 3's bit for bit")
+                del got
+                if backend == "arr":
+                    res["analytics"] = mesh_analytics(g, want, seeds, seed, sync)
+                    with Service(reg) as svc:
+                        sync()
+                        t0 = time.perf_counter()
+                        served = svc.query_batch("graph3", texts[:MESH_SERVICE_REQUESTS])
+                        sync()
+                        res["service_ms"] = (time.perf_counter() - t0) * 1e3
+                    check(all(same_result(a, b) for a, b in zip(served, results)),
+                          f"3i {what}: {MESH_SERVICE_REQUESTS} service requests equal phase 3's")
+                    del served, reg
+            count(res, calls, mesh, what)
+            if device == "cuda" and backend == "arr":
+                check(calls["packed"] > 0, f"3i {what}: the queries ran sharded on B1")
+            del g
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        if label != "one_card":
+            continue
+        # one request on the byte layout: B2 once per shard
+        with bitplane.byte_masks():
+            g = load_propgraph(path, backend="arr", mesh=mesh)
+            g._vstore.finalize()
+            g._estore.finalize()
+        check(not g._vstore.packed, "3i: byte_masks() sealed byte shards")
+        g.match(texts[0])  # warm
+        ops.reset_launches()
+        with counting_sharded_queries() as calls:
+            got = g.match(texts[0])
+            sync()
+        check(same_result(got, results[0]), "3i: the byte layout's request equals phase 3's")
+        res = res_mesh["byte"] = {}
+        count(res, calls, mesh, f"{label} byte")
+        if device == "cuda":
+            check(calls["byte"] > 0, "3i: the byte request ran sharded on B2")
+        del g, got
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    del want
+    shutil.rmtree(os.path.dirname(path))
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -3078,6 +3275,7 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
 
     # --- phase 3a: the other two stores and persistence, from the same graph
     out["stores"] = stores_phase(pg, reqs, results[:6], seed, device, sync)
+    saved = out["stores"].pop("path")
     print("phase 3a timings", json.dumps({
         **{k: out["stores"][k] for k in ("phase_s", "save_s", "linked_walk_s")},
         **{b: {k: out["stores"][b].get(k) for k in ("load_s", "seal_s", "p50_ms", "p95_ms")}
@@ -3274,10 +3472,33 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
     if device == "cuda":
         torch.cuda.empty_cache()
 
+    # --- phase 3i: the entity mesh: graph3 reopened from phase 3a's save, sharded
+    out["mesh"] = mesh_phase(pg, reqs, results, saved, seed, device, sync)
+    mesh_out = out["mesh"]
+    one = mesh_out["one_card"]
+    print("phase 3i timings", json.dumps({
+        "phase_s": mesh_out["phase_s"],
+        **{b: {k: one[b][k] for k in ("load_s", "seal_s", "p50_ms", "p95_ms", "qps")}
+           for b in ("arr", "list", "listd")},
+        "analytics_ms": {k: v for k, v in one["arr"]["analytics"].items() if k.endswith("_ms")},
+        "service_ms": one["arr"]["service_ms"]}), flush=True)
+    print(f"phase 3i ok: on {MESH_SHARDS} shards", "(and every card)" if "all_cards" in mesh_out
+          else "of one card", "every request, k-hop, shortest paths, components, communities,",
+          "the sample and the service's answers equal the single-device graph's bit for bit,",
+          "PageRank within", PR_L1_TOL, "(L1); no dense store kept", json.dumps({
+              "launches": mesh_out["launches"],
+              "sharded_queries": {b: one[b]["sharded_queries"] for b in ("arr", "byte")},
+              "shard_bytes": {b: one[b]["shard_bytes"] for b in ("arr", "list", "listd")},
+              "pagerank_l1": one["arr"]["analytics"]["pagerank_l1"]}), flush=True)
+
     if device == "cuda":
         for entry, launches in ((b1, svc_out["b1_launches"]), (b3, svc_out["b3_launches"])):
             entry["launches_by_path"]["service"] = launches
             entry["launches"] += launches
+        b2["launches_by_path"] = {"byte": b2["launches"]}
+        for entry, kernel in ((b1, ops.PACKED), (b2, ops.BYTE)):
+            entry["launches_by_path"]["mesh"] = mesh_out["launches"][kernel]
+            entry["launches"] += mesh_out["launches"][kernel]
         out["peak_mem_gib"] = max(torch.cuda.max_memory_allocated() / 2**30,
                                   out["gnn"]["peak_mem_gib"], out["gnn"]["peak_mem_gib_before"],
                                   out["recsys"]["peak_mem_gib"], out["lm"]["peak_mem_gib"],

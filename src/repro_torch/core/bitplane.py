@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +29,7 @@ WORD = 32  # bits per packed word
 __all__ = [
     "WORD", "n_words", "packed_default", "byte_masks",
     "pack_bits_host", "unpack_bits_host",
-    "pack_mask", "unpack_mask", "or_reduce",
+    "pack_mask", "unpack_mask", "or_reduce", "or_allreduce",
 ]
 
 # None → consult the env var; True/False → explicit override (context manager).
@@ -143,3 +143,35 @@ def or_reduce(words: torch.Tensor, dim: int = 0) -> torch.Tensor:
     plane = moved.reshape(k, -1).contiguous()
     select = torch.ones((1, k), dtype=torch.bool, device=words.device)
     return ops.bitmap_query_batched_packed(plane, select)[0].reshape(rest)
+
+
+def or_allreduce(parts: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """Bitwise-OR all-reduce of packed words across the P shards of a mesh:
+    ``parts[i]`` is shard ``i``'s int32 words (on its device); every part
+    of the result is the OR of all P.
+
+    A max is not an OR on words (max(0b01, 0b10) = 0b10), and NCCL has no
+    OR reduction.  For power-of-two P this is the recursive-doubling
+    butterfly over ``ppermute``: log2(P) rounds, each moving W words —
+    1 bit per entity; each round computes every shard's new value before
+    any is overwritten.  Any other P gathers the parts and folds them
+    (``or_reduce``)."""
+    from repro_torch.launch.collectives import all_gather, ppermute
+
+    parts = tuple(parts)
+    p = len(parts)
+    if p <= 1:
+        return parts
+    if p & (p - 1) == 0:
+        d = 1
+        while d < p:
+            moved = ppermute(parts, [(i, i ^ d) for i in range(p)])
+            parts = tuple(w | x for w, x in zip(parts, moved))
+            d <<= 1
+        return parts
+    gathered = all_gather(parts)
+    folded = {}
+    for g in gathered:  # one fold per distinct stacked tensor (device)
+        if id(g) not in folded:
+            folded[id(g)] = or_reduce(g, dim=0)
+    return tuple(folded[id(g)] for g in gathered)

@@ -23,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import dip_shard
 from repro_torch.core.attr_map import AttributeMap
 from repro_torch.core.di import DIGraph
 from repro_torch.core.property_graph import PropGraph, _AttrStore
@@ -112,7 +113,10 @@ def load_propgraph(path: str, *, backend: Optional[str] = None, mesh=None,
     rebuilt from the raw pairs when they seal (the bulk build is the cheap
     step, §VII-B).  Index arrays and ``node_map`` of either width load as
     int32, the reference's type; 64-bit columns narrow as ingest narrows
-    them.  ``mesh`` is not ported yet and raises."""
+    them.  ``mesh`` (an ``EntityMesh``) loads the graph straight onto the
+    mesh: the stores seal as padded shards, the DI arrays and columns go to
+    its lead device (``device`` must then be None or that device).  A save
+    of either package reopens on a mesh; the format has no mesh in it."""
     with open(os.path.join(path, "manifest.json")) as f:
         man = json.load(f)
     if man["version"] != _FORMAT_VERSION:
@@ -125,14 +129,14 @@ def load_propgraph(path: str, *, backend: Optional[str] = None, mesh=None,
         return torch.from_numpy(data[name].astype(np.int32, copy=False)).to(pg.device)
 
     seg = data["seg"]
-    pg._set_graph(DIGraph(
-        src=t("src"), dst=t("dst"), seg=t("seg"), node_map=t("node_map"),
-        n=int(man["n"]), m=int(man["m"]),
-        max_deg=int(np.max(seg[1:] - seg[:-1], initial=0))))
+    g = DIGraph(src=t("src"), dst=t("dst"), seg=t("seg"), node_map=t("node_map"),
+                n=int(man["n"]), m=int(man["m"]),
+                max_deg=int(np.max(seg[1:] - seg[:-1], initial=0)))
+    pg._set_graph(g if mesh is None else dip_shard.place_graph(g, mesh))
     g = pg.graph
     for attr, size, key, pre in (("_vstore", g.n, "vertex_labels", "v"),
                                  ("_estore", max(g.m, 1), "edge_relationships", "e")):
-        store = _AttrStore(pg.backend, size, pg.device)
+        store = _AttrStore(pg.backend, size, pg.device, mesh=mesh)
         store.amap = AttributeMap(man[key])
         if len(data[f"{pre}_ent"]):
             store._pairs_e.append(data[f"{pre}_ent"].astype(np.int32, copy=False))

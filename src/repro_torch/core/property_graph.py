@@ -18,14 +18,24 @@ the chosen DIP backend, which seals at its first query.  Backends: ``arr``
 chains + inverted CSR).  ``core/io.py`` saves a graph and loads it under
 any backend.
 
-This port covers one device: ingest, ``match()``, ``sample()``, the
-frontier analytics (``khop``, ``components``, ``shortest_paths``,
-``pagerank``, ``communities``) and the overlay (docs/ARCHITECTURE.md §11:
-writes after a store sealed, ``insert_edges``, tombstones, property
-updates, ``snapshot``/``fork``, ``compact``) on every backend, with EXPLAIN
-ANALYZE (``match(profile=True)``, ``explain_analyze``) and the
-analytics' run metrics.  Meshes are not ported yet and raise
-``NotImplementedError``.
+The port covers ingest, ``match()``, ``sample()``, the frontier analytics
+(``khop``, ``components``, ``shortest_paths``, ``pagerank``,
+``communities``) and the overlay (docs/ARCHITECTURE.md §11: writes after a
+store sealed, ``insert_edges``, tombstones, property updates,
+``snapshot``/``fork``, ``compact``) on every backend, with EXPLAIN ANALYZE
+(``match(profile=True)``, ``explain_analyze``) and the analytics' run
+metrics.
+
+Distribution (docs/ARCHITECTURE.md §7): ``PropGraph(backend=...,
+mesh=make_entity_mesh(...))`` shards the DIP stores — the heavy query-side
+data — over the mesh's P devices (``core.dip_shard``), and every store
+query runs shard by shard, each shard scanning only its N/P entities.
+``khop``, ``shortest_paths`` and ``pagerank`` relax each shard's block of
+the edges and all-reduce the partials.  The DI arrays, the typed columns,
+the combine, the propagation, sampling, ``components`` and
+``communities`` stay on the mesh's lead device (``launch/sharding.py``).
+Every answer equals the single-device one: bitwise, PageRank within float
+tolerance.
 
 Overlay reads compose before propagation: a sealed store answers
 ``base | delta`` (the delta's matches reach the device as ids, never as a
@@ -49,7 +59,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import bitplane, dip_arr, dip_list, dip_listd
+from repro_torch.core import bitplane, dip_arr, dip_list, dip_listd, dip_shard
 from repro_torch.core.attr_map import AttributeMap
 from repro_torch.core.device import resolve_device
 from repro_torch.core.di import DIGraph, build_di, edge_lookup
@@ -145,19 +155,26 @@ class _AttrStore:
     pairs before a fresh seal.  ``out_n`` is the query result length: the
     EFFECTIVE entity universe (base + delta edges for the edge store),
     while ``n`` stays the sealed base's row count.
+
+    With ``mesh`` set the seal places the padded shards instead
+    (``finalize_sharded``) and releases the host build: no device keeps a
+    dense copy, and the queries run shard by shard (``core.dip_shard``),
+    answering on the lead device (``device``).
     """
 
-    def __init__(self, backend: str, n_entities: int, device: torch.device):
+    def __init__(self, backend: str, n_entities: int, device: torch.device, mesh=None):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
         self.backend = backend
         self.n = n_entities
         self.out_n = n_entities
         self.device = device
+        self.mesh = mesh
         self.amap = AttributeMap()
         self._pairs_e: List[np.ndarray] = []  # entity ids, insertion order
         self._pairs_a: List[np.ndarray] = []  # attribute ids
         self._store = None  # DIPArr, DIPList or DIPListD on the device
+        self._sharded = None  # its sharded placement, in mesh mode (never both)
         self._host = None  # host build awaiting upload
         self._counts: Optional[np.ndarray] = None
         self._k_base: Optional[int] = None  # attribute rows in the sealed store
@@ -186,7 +203,7 @@ class _AttrStore:
 
     @property
     def sealed(self) -> bool:
-        return self._store is not None
+        return self._store is not None or self._sharded is not None
 
     @property
     def packed(self) -> bool:
@@ -194,7 +211,7 @@ class _AttrStore:
         (arr only); captured at build time."""
         if self.backend != "arr":
             return False
-        for built in (self._store, self._host):
+        for built in (self._store, self._sharded, self._host):
             if built is not None:
                 return bool(built.packed)
         return bitplane.packed_default()
@@ -273,11 +290,24 @@ class _AttrStore:
         return host
 
     def finalize(self):
-        """Seal: place the host build on the device (once)."""
+        """Seal: place the host build on the device (once); in mesh mode,
+        place its shards (``finalize_sharded``)."""
+        if self.mesh is not None:
+            return self.finalize_sharded()
         if self._store is None:
             self._store = _BUILDERS[self.backend][1](self._build_host(), self.device)
             self._host = None
         return self._store
+
+    def finalize_sharded(self):
+        """The padded, mesh-placed store (mesh mode only), built once: the
+        host build is placed shard by shard and then released, so no device
+        (and no cache slot) holds a dense copy; the counts survive in
+        ``_counts``."""
+        if self._sharded is None:
+            self._sharded = dip_shard.place_store(self.backend, self._build_host(), self.mesh)
+            self._host = None
+        return self._sharded
 
     def known_ids(self, values: Sequence[str]) -> np.ndarray:
         """Interned attribute ids for ``values`` (unknown values dropped)."""
@@ -427,6 +457,10 @@ class _AttrStore:
         """(n,) bool over the sealed base only.  The query mask is built at
         ``_k_base`` — values interned after the seal are invisible here (the
         delta union answers them)."""
+        if self.mesh is not None:
+            ss = self.finalize_sharded()  # seals: the mask is built at ``_k_base``
+            return dip_shard.query_any_sharded(self.backend, ss,
+                                               torch.from_numpy(self._mask(values)), impl=impl)
         store = self.finalize()
         if self.backend == "listd" and impl == "budget":
             ids = self.known_ids(values)
@@ -462,8 +496,12 @@ class _AttrStore:
         queries on list and listd."""
         if self.backend != "arr":
             return torch.stack([self.query_any(v, impl=impl) for v in values_list])
-        store = self.finalize()
-        rows = dip_arr.query_any_batched(store, self._masks(values_list), impl=impl or "matvec")
+        if self.mesh is not None:
+            rows = dip_shard.query_any_batched_sharded(self.finalize_sharded(),
+                                                       self._masks(values_list), impl=impl)
+        else:
+            rows = dip_arr.query_any_batched(self.finalize(), self._masks(values_list),
+                                             impl=impl or "matvec")
         return self._union_delta(self._pad_to_out(rows), values_list, words=False)
 
     def query_any_words(self, values: Sequence[str], *,
@@ -478,7 +516,11 @@ class _AttrStore:
                                device=self.device)
         store = self.finalize()
         mask = torch.from_numpy(self._mask(values)).to(self.device)
-        out = self._pad_words_to_out(dip_arr.query_any_words(store, mask))
+        if self.mesh is not None:
+            words = dip_shard.query_any_words_sharded(store, mask, impl=impl)
+        else:
+            words = dip_arr.query_any_words(store, mask)
+        out = self._pad_words_to_out(words)
         return self._union_delta(out, [values], words=True)
 
     def query_any_batched_words(self, values_list: Sequence[Sequence[str]], *,
@@ -486,8 +528,11 @@ class _AttrStore:
         """(Q, ceil(out_n/32)) int32 — Q packed OR-queries, one launch."""
         if not self.packed:
             raise ValueError("query_any_batched_words requires a packed store")
-        store = self.finalize()
-        rows = dip_arr.query_any_batched_words(store, self._masks(values_list))
+        if self.mesh is not None:
+            rows = dip_shard.query_any_batched_words_sharded(
+                self.finalize_sharded(), self._masks(values_list), impl=impl)
+        else:
+            rows = dip_arr.query_any_batched_words(self.finalize(), self._masks(values_list))
         return self._union_delta(self._pad_words_to_out(rows), values_list, words=True)
 
     def to_arrays(self) -> dict:
@@ -496,7 +541,11 @@ class _AttrStore:
             raise ValueError(f"to_arrays moves DIP-ARR planes; save a {self.backend!r} graph "
                              "with save_propgraph and reload it with load_propgraph")
         store = self.finalize()
-        bm = store.bitmap.cpu().numpy()
+        if self.mesh is not None:  # the shards, joined on the host and cut to n
+            bm = np.concatenate([b.cpu().numpy() for b in store.bitmap], axis=1)
+            bm = bm[:, :bitplane.n_words(store.n) if store.packed else store.n]
+        else:
+            bm = store.bitmap.cpu().numpy()
         return {"values": self.amap.values, "bitmap": bm.view(np.uint32) if store.packed else bm,
                 "k": store.k, "n": store.n, "packed": store.packed}
 
@@ -513,6 +562,22 @@ class _AttrStore:
         c._pairs_a = list(self._pairs_a)
         c._delta = self._delta.frozen_copy()
         return c
+
+
+def _mesh_device(mesh, device) -> torch.device:
+    """The mesh's lead device; ``device``, when given, must name it."""
+    from repro_torch.launch.mesh import EntityMesh
+
+    if not isinstance(mesh, EntityMesh):
+        raise TypeError(f"mesh must be an EntityMesh (launch.mesh.make_entity_mesh), "
+                        f"got {type(mesh).__name__}")
+    if device is not None:
+        d = torch.device(device)
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        if d != mesh.lead:
+            raise ValueError(f"device={d} is not the mesh's lead device {mesh.lead}")
+    return mesh.lead
 
 
 def _write_locked(fn):
@@ -536,16 +601,16 @@ def _write_locked(fn):
 
 class PropGraph:
     """A directed, labeled property multigraph over the DI structure, on one
-    device (``device=None`` → the CUDA card), with the overlay's writes."""
+    device (``device=None`` → the CUDA card) or sharded over an entity mesh
+    (``mesh=``, ``launch.mesh.make_entity_mesh``; ``device`` is then the
+    mesh's lead device), with the overlay's writes."""
 
     def __init__(self, backend: str = "arr", mesh=None, *, device=None):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-        if mesh is not None:
-            raise NotImplementedError("multi-device meshes are not ported yet")
         self.backend = backend
-        self.mesh = None
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = _mesh_device(mesh, device) if mesh is not None else resolve_device(device)
         self.graph: Optional[DIGraph] = None
         self._node_map_host: Optional[np.ndarray] = None
         self._vstore: Optional[_AttrStore] = None
@@ -622,9 +687,10 @@ class PropGraph:
         src = np.asarray(src)
         if src.size == 0 and self.graph is not None:
             return self  # no-op: nothing to rebuild from
-        self._set_graph(build_di(src, np.asarray(dst), device=self.device))
-        self._vstore = _AttrStore(self.backend, self.graph.n, self.device)
-        self._estore = _AttrStore(self.backend, max(self.graph.m, 1), self.device)
+        graph = build_di(src, np.asarray(dst), device=self.device)
+        self._set_graph(graph if self.mesh is None else dip_shard.place_graph(graph, self.mesh))
+        self._vstore = _AttrStore(self.backend, self.graph.n, self.device, mesh=self.mesh)
+        self._estore = _AttrStore(self.backend, max(self.graph.m, 1), self.device, mesh=self.mesh)
         self._delta_edges = None
         self._dead_v = None
         self._dead_e = None
@@ -930,8 +996,12 @@ class PropGraph:
         dtype = col.dtype
         if dtype in (np.uint16, np.uint32):
             col = col.astype(np.int64)
-        return ((torch.from_numpy(np.ascontiguousarray(col)).to(self.device),
-                 torch.from_numpy(np.array(valid, bool)).to(self.device)), dtype)
+        col = torch.from_numpy(np.ascontiguousarray(col))
+        valid = torch.from_numpy(np.array(valid, bool))
+        if self.mesh is not None:
+            return (dip_shard.place_column(col, self.mesh),
+                    dip_shard.place_column(valid, self.mesh)), dtype
+        return (col.to(self.device), valid.to(self.device)), dtype
 
     # ---------------------------------------------------------- alive masks
     def _alive_vertex_mask(self) -> Optional[torch.Tensor]:
@@ -1160,8 +1230,18 @@ class PropGraph:
 
     # -------------------------------------------------- frontier analytics
     # Each run is recorded for the observability layer (``_obs_traverse``).
-    # The reference also runs them sharded under a mesh, which waits for its
-    # port.
+    # On a mesh, khop / shortest_paths / pagerank relax shard by shard over
+    # the graph's cached edge blocks (``_edge_blocks``); components and
+    # communities run the single-device program on the lead device.
+    def _edge_blocks(self, direction: int):
+        """The effective graph's per-shard edge blocks walked in
+        ``direction`` (``traverse.engine._pad_edges``), cached per version:
+        the base and the overlay's combined view each cut theirs once."""
+        from repro_torch.traverse.engine import _pad_edges
+
+        return self._cached(f"edge_blocks_{direction}", lambda: _pad_edges(
+            self._require_graph(), self.mesh, direction))
+
     def khop(self, seeds, k: int, *, pattern=None, undirected: bool = False,
              impl: Optional[str] = None) -> torch.Tensor:
         """Vertices within ≤``k`` hops of ``seeds`` (original ids), following
@@ -1174,12 +1254,13 @@ class PropGraph:
         ``<-[...]-`` walks edges in reverse; a node-only pattern confines
         the traversal to matching vertices.  ``None`` allows everything.
 
-        ``impl``: ``None``/``"frontier"`` = the edge-centric Boolean step;
-        ``"csr"`` = the CSR gather of each new frontier's windows (forward
-        and directed only, on a graph without delta edges, whose combined
-        view has no SEG windows; degrades to ``frontier`` otherwise).  Both
-        are bitwise identical.  Tombstoned edges never carry the walk, and
-        tombstoned seeds drop out.
+        ``impl``: ``None``/``"frontier"`` = the edge-centric Boolean step
+        (sharded on a mesh); ``"csr"`` = the CSR gather of each new
+        frontier's windows (forward and directed only, off a mesh, on a
+        graph without delta edges, whose combined view has no SEG windows;
+        degrades to ``frontier`` otherwise).  All are bitwise identical.
+        Tombstoned edges never carry the walk, and tombstoned seeds drop
+        out.
         """
         from repro_torch import traverse
 
@@ -1187,8 +1268,13 @@ class PropGraph:
             raise ValueError(f"unknown impl {impl!r}")
         g, e_ok, direction = self._step_filter(pattern)
         ids = self._seed_ids(seeds)
-        if impl == "csr" and direction == 1 and not undirected and not g.unsorted:
+        if (impl == "csr" and self.mesh is None and direction == 1 and not undirected
+                and not g.unsorted):
             return _observed("khop", seeds, lambda: traverse.khop_csr(g, ids, e_ok, k=k))
+        if self.mesh is not None:
+            return _observed("khop", seeds, lambda: traverse.khop_mask_sharded(
+                g, self._seed_mask(ids), e_ok, k=k, mesh=self.mesh, direction=direction,
+                undirected=undirected, blocks=self._edge_blocks(direction)))
         return _observed("khop", seeds, lambda: traverse.khop_mask(
             g, self._seed_mask(ids), e_ok, k=k, direction=direction, undirected=undirected))
 
@@ -1419,6 +1505,11 @@ class PropGraph:
 
         g, e_ok, direction = self._step_filter(pattern)
         w, e_ok = self._weighted_edge_filter(e_ok, weight)
+        if self.mesh is not None:
+            return _observed("shortest_paths", seeds, lambda: traverse.shortest_paths_sharded(
+                g, self._seed_mask(self._seed_ids(seeds)), w, e_ok, mesh=self.mesh,
+                direction=direction, undirected=undirected, max_iters=max_iters,
+                blocks=self._edge_blocks(direction)))
         return _observed("shortest_paths", seeds, lambda: traverse.shortest_paths_masked(
             g, self._seed_mask(self._seed_ids(seeds)), w, e_ok, direction=direction,
             undirected=undirected, max_iters=max_iters))
@@ -1462,6 +1553,10 @@ class PropGraph:
 
         g, v_ok, e_ok, direction = self._subgraph_filters(pattern)
         w, e_ok = self._weighted_edge_filter(e_ok, weight)
+        if self.mesh is not None:
+            return _observed("pagerank", None, lambda: traverse.pagerank_sharded(
+                g, v_ok, e_ok, w, mesh=self.mesh, damping=damping, iters=iters,
+                direction=direction, blocks=self._edge_blocks(direction)))
         return _observed("pagerank", None, lambda: traverse.pagerank_masked(
             g, v_ok, e_ok, w, damping=damping, iters=iters, direction=direction))
 

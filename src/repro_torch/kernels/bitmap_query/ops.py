@@ -8,10 +8,18 @@ plain version (``ref.py``); CUDA tensors launch the hand-written kernel
 ``launches`` counts kernel launches per kernel (never plain-version calls),
 so a run can show that its main path went through the kernels;
 ``reset_launches()`` zeroes it.
+
+The ``*_sharded`` wrappers run the same kernels over a plane split across
+an entity mesh (``launch/mesh.py``): a tuple of P contiguous shards, shard
+``i`` on the mesh's ``devices[i]``.  Each launches its kernel once per
+shard, on that shard's (K, N/P) bytes or (K, W/P) words, with the (Q, K)
+selects copied to the shard's device; the output stays sharded (a tuple,
+one part per shard) and no collective runs.  Each shard launch counts in
+``launches``.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -99,3 +107,50 @@ def bitmap_query_batched(bitmap: torch.Tensor, attr_masks: torch.Tensor) -> torc
 def bitmap_query(bitmap: torch.Tensor, attr_mask: torch.Tensor) -> torch.Tensor:
     """(K, N) int8 bitmap × (K,) bool query → (N,) bool entity mask."""
     return bitmap_query_batched(bitmap, attr_mask[None, :])[0]
+
+
+def _sharded(name: str, fn, shards: Sequence[torch.Tensor], masks: torch.Tensor,
+             mesh) -> Tuple[torch.Tensor, ...]:
+    """``fn(shard_i, masks on shard_i's device)`` for every shard; a shard
+    not on its mesh device raises (no fallback to another device)."""
+    from repro_torch.launch.collectives import broadcast
+
+    shards = tuple(shards)
+    if len(shards) != mesh.size:
+        raise ValueError(f"{name}: {len(shards)} shards for a mesh of P={mesh.size}")
+    for i, (shard, dev) in enumerate(zip(shards, mesh.devices)):
+        if shard.device != dev:
+            raise ValueError(f"{name}: shard {i} on {shard.device}, its mesh device is {dev}")
+    masks = broadcast(masks, mesh.devices)
+    return tuple(fn(shard, m) for shard, m in zip(shards, masks))
+
+
+def bitmap_query_sharded(shards: Sequence[torch.Tensor], attr_mask: torch.Tensor, *,
+                         mesh) -> Tuple[torch.Tensor, ...]:
+    """Sharded single-mask query (B2 per shard): P (K, N/P) int8 shards ×
+    (K,) bool → P (N/P,) bool parts, entity-sharded."""
+    return _sharded(BYTE, bitmap_query, shards, attr_mask, mesh)
+
+
+def bitmap_query_batched_sharded(shards: Sequence[torch.Tensor], attr_masks: torch.Tensor, *,
+                                 mesh) -> Tuple[torch.Tensor, ...]:
+    """Sharded multi-mask query (B2 per shard): (Q, K) selects on every
+    shard → P (Q, N/P) bool parts, entity-sharded on N — the planner's
+    fusion and the paper's distribution compose."""
+    return _sharded(BYTE, bitmap_query_batched, shards, attr_masks, mesh)
+
+
+def bitmap_query_packed_sharded(shards: Sequence[torch.Tensor], attr_mask: torch.Tensor, *,
+                                mesh) -> Tuple[torch.Tensor, ...]:
+    """Sharded packed query (B1 per shard): P (K, W/P) int32 word shards ×
+    (K,) bool → P (W/P,) int32 parts, word-sharded (entity ownership stays
+    word-aligned)."""
+    return _sharded(PACKED, bitmap_query_packed, shards, attr_mask, mesh)
+
+
+def bitmap_query_batched_packed_sharded(shards: Sequence[torch.Tensor],
+                                        attr_masks: torch.Tensor, *,
+                                        mesh) -> Tuple[torch.Tensor, ...]:
+    """Sharded packed multi-mask query (B1 per shard): → P (Q, W/P) int32
+    parts, word-sharded on W."""
+    return _sharded(PACKED, bitmap_query_batched_packed, shards, attr_masks, mesh)

@@ -1,2 +1,4 @@
-"""repro_torch.launch — launchers.  Ported so far: the LM serving demo
-(``serve``) and the graph analytics service's driver (``pgserve``)."""
+"""repro_torch.launch — launchers and placement.  Ported so far: the LM
+serving demo (``serve``), the graph analytics service's driver
+(``pgserve``) and the property graph's entity mesh (``mesh``), its
+collectives (``collectives``) and placement specs (``sharding``)."""

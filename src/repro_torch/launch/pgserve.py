@@ -9,7 +9,7 @@ reporting throughput/latency and the service's coalescing/cache counters.
     PYTHONPATH=src python -m repro_torch.launch.pgserve --graphs 2 \
         --requests 64 --concurrency 8
 
-    # smoke gate: correctness across all backends
+    # smoke gate: correctness across all backends, and on an entity mesh
     PYTHONPATH=src python -m repro_torch.launch.pgserve --smoke
 
 Network mode (the ``pgd`` front-end, docs/ARCHITECTURE.md §9):
@@ -25,10 +25,12 @@ Network mode (the ``pgd`` front-end, docs/ARCHITECTURE.md §9):
     PYTHONPATH=src python -m repro_torch.launch.pgserve --net --smoke
 
 Everything runs on the CUDA card unless ``--device cpu`` asks for the CPU;
-the spawned server takes the same ``--device``.  Meshes are not ported
-(ROADMAP A10): their checks print that they were skipped.  The workload
-and runner helpers are the building blocks of the port's serve benchmark,
-so the CLI and a benchmark measure the same thing.
+the spawned server takes the same ``--device``.  ``--mesh`` places the
+tenant graphs on an entity mesh (``cli_mesh``: every card, or the one CPU
+device); the smoke gates check a mesh too (``smoke_mesh``: every card
+when there are several, else P = 8 shards on the one device).  The
+workload and runner helpers are the building blocks of the port's serve
+benchmark, so the CLI and a benchmark measure the same thing.
 """
 from __future__ import annotations
 
@@ -44,6 +46,8 @@ import numpy as np
 
 __all__ = [
     "build_tenant_graph",
+    "cli_mesh",
+    "smoke_mesh",
     "pattern_pool",
     "synthetic_workload",
     "run_workload",
@@ -59,7 +63,7 @@ __all__ = [
 
 N_LABELS = 12
 RELS = ("follows", "likes")
-MESH_SKIPPED = "skipped (1 device; meshes wait for the multi-GPU port, ROADMAP A10)"
+SMOKE_SHARDS = 8  # the gates' P on a one-device machine (the reference CI forces 8 devices)
 
 
 def _np(x) -> np.ndarray:
@@ -75,8 +79,36 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def cli_mesh(device):
+    """``--mesh``'s entity mesh on ``device``'s kind, as the reference's
+    ``make_entity_mesh()``: every card for a CUDA device, the one CPU
+    device for the CPU."""
+    import torch
+
+    from repro_torch.launch.mesh import make_entity_mesh
+
+    device = torch.device("cuda" if device is None else device)
+    return make_entity_mesh() if device.type == "cuda" else make_entity_mesh(devices=[device])
+
+
+def smoke_mesh(device):
+    """The gates' mesh: every card when the machine has more than one;
+    otherwise ``SMOKE_SHARDS`` shards on the one device (``device``: None
+    is the card) — the port's counterpart of the reference CI's 8 forced
+    host devices."""
+    import torch
+
+    from repro_torch.launch.mesh import make_entity_mesh
+
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and torch.cuda.device_count() > 1:
+        return make_entity_mesh()
+    return make_entity_mesh(devices=[device] * SMOKE_SHARDS)
+
+
 def build_tenant_graph(backend: str, m: int, *, mesh=None, seed: int = 0, device=None):
-    """One synthetic tenant on ``device`` (None: the CUDA card):
+    """One synthetic tenant on ``device`` (None: the CUDA card), or on the
+    entity ``mesh``:
     Tab.-I-regime random graph with labels ``l0..l{N_LABELS-1}``,
     relationships ``follows``/``likes``, an ``age`` vertex property (the
     attribute shape every pool pattern queries) and a ``w`` edge weight in
@@ -274,19 +306,16 @@ def serve(*, port: int = 0, host: str = "127.0.0.1", backend: str = "arr",
     ``backends`` (e.g. ``("arr", "list", "listd")``) builds ONE graph per
     backend, named after it — the multi-backend smoke layout; otherwise
     ``graphs`` tenants named ``tenant{i}`` on ``backend`` — the layout the
-    workload generator and benchmarks address.  ``mesh`` raises: meshes
-    wait for ROADMAP A10."""
+    workload generator and benchmarks address.  ``mesh`` places them on
+    ``cli_mesh(device)``."""
     from repro_torch.service import PGServer, Service
 
-    if mesh:
-        raise NotImplementedError("--mesh: multi-device meshes are not ported yet (ROADMAP A10)")
+    where = {"mesh": cli_mesh(device)} if mesh else {"device": device}
     with Service() as svc:
         if backends:
-            named = {b: build_tenant_graph(b, m, seed=seed, device=device)
-                     for b in backends}
+            named = {b: build_tenant_graph(b, m, seed=seed, **where) for b in backends}
         else:
-            named = {f"tenant{i}": build_tenant_graph(backend, m, seed=seed + i,
-                                                      device=device)
+            named = {f"tenant{i}": build_tenant_graph(backend, m, seed=seed + i, **where)
                      for i in range(graphs)}
         pool = pattern_pool()
         for name, pg in named.items():
@@ -388,8 +417,9 @@ def _packed_parity_block(m: int, seed: int, device=None) -> None:
     """Packed ≡ byte mask-plane gate (docs/ARCHITECTURE.md §14): the same
     tenant graph built with the bit-packed plane and with the
     ``REPRO_PG_BYTE_MASKS`` byte fallback answers match / khop /
-    components / overlay views bitwise-identically — per backend.  The
-    reference also runs it on a mesh; that waits for ROADMAP A10."""
+    components / overlay views bitwise-identically — per backend, and on
+    ``smoke_mesh(device)`` (word-axis shards and the packed OR all-reduce
+    frontier against byte shards and the max all-reduce)."""
     from repro_torch.core import bitplane
 
     pool = pattern_pool()
@@ -413,16 +443,17 @@ def _packed_parity_block(m: int, seed: int, device=None) -> None:
         out.append(live.match(pool[0]).edge_mask)
         return [_np(x) for x in out]
 
-    for backend in ("arr", "list", "listd"):
-        got = {}
-        for packed in (True, False):
-            with bitplane.byte_masks(not packed):
-                got[packed] = surfaces(
-                    build_tenant_graph(backend, m, seed=seed, device=device))
-        for i, (a, b) in enumerate(zip(got[True], got[False])):
-            assert np.array_equal(a, b), (backend, i)
-    print("pgserve smoke: packed ≡ byte mask plane (single-device) OK", flush=True)
-    print(f"pgserve smoke: packed ≡ byte mask plane (mesh) {MESH_SKIPPED}", flush=True)
+    for mesh in (None, smoke_mesh(device)):
+        where = {"device": device} if mesh is None else {"mesh": mesh}
+        for backend in ("arr", "list", "listd") if mesh is None else ("arr",):
+            got = {}
+            for packed in (True, False):
+                with bitplane.byte_masks(not packed):
+                    got[packed] = surfaces(build_tenant_graph(backend, m, seed=seed, **where))
+            for i, (a, b) in enumerate(zip(got[True], got[False])):
+                assert np.array_equal(a, b), (backend, mesh, i)
+        kind = "single-device" if mesh is None else f"mesh P={mesh.size}"
+        print(f"pgserve smoke: packed ≡ byte mask plane ({kind}) OK", flush=True)
 
 
 def net_smoke(m: int = 600, seed: int = 0, tmp_dir: Optional[str] = None,
@@ -588,11 +619,27 @@ def net_smoke(m: int = 600, seed: int = 0, tmp_dir: Optional[str] = None,
                 _assert_wire_result_matches(c.query("disk", pool[1]),
                                             refs["arr"].match(pool[1]),
                                             "load_graph")
-                # the reference also reopens the save onto the server's
-                # entity mesh when it has >1 device; that waits for A10
+                # reopen the same save onto the server's entity mesh (every
+                # card; one CPU device for a CPU server): the sharded path,
+                # driven cross-process, must stay bitwise too
                 devices = c.server_info().get("devices", 1)
-                assert devices >= 1, devices
-                print(f"pgserve net smoke: sharded check {MESH_SKIPPED}", flush=True)
+                c.load_graph("sharded", path, backend="arr", mesh=True)
+                for pattern in pool[:4]:
+                    _assert_wire_result_matches(c.query("sharded", pattern),
+                                                refs["arr"].match(pattern), ("sharded", pattern))
+                # weighted analytics on the reopen: the min all-reduce is
+                # exact, PageRank's sum agrees within atol
+                seeds = _np(refs["arr"].graph.node_map)[:4]
+                assert np.array_equal(c.shortest_paths("sharded", seeds, weight="w"),
+                                      _np(refs["arr"].shortest_paths(seeds, weight="w"))), \
+                    "sharded sp"
+                assert np.allclose(c.pagerank("sharded"), _np(refs["arr"].pagerank()),
+                                   atol=1e-5), "sharded pagerank"
+                # fused sampling on the reopen runs on the lead device:
+                # its blocks are bitwise the unsharded graph's
+                _assert_blocks_equal(c.sample("sharded", seeds.astype(np.int64), [4], seed=5),
+                                     refs["arr"].sample(seeds, [4], seed=5), "sharded sample")
+                print(f"pgserve net smoke: sharded P={devices} ≡ single-device OK", flush=True)
             # a bad request fails alone, with the real exception type
             try:
                 c.query("arr", "(a {nosuchprop > 1})-[:follows]->(b)")
@@ -651,9 +698,11 @@ def _verify_bitwise(service, graphs: Dict[str, object],
 def smoke(m: int = 600, requests: int = 24, concurrency: int = 4,
           seed: int = 0, device=None) -> None:
     """Smoke gate on ``device`` (None: the CUDA card): service ≡ direct
-    match on all three backends, invalidation works, and the arr path
-    actually coalesced (the reference also checks a device mesh; that
-    waits for ROADMAP A10).  Prints ``PGSERVE SMOKE OK``."""
+    match on all three backends, invalidation works, the arr path actually
+    coalesced, and a graph on ``smoke_mesh(device)`` answers as the
+    single-device one.  Prints ``PGSERVE SMOKE OK``."""
+    import torch
+
     from repro_torch.service import Service
 
     pool = pattern_pool()
@@ -795,10 +844,17 @@ def smoke(m: int = 600, requests: int = 24, concurrency: int = 4,
     pg = build_tenant_graph("arr", m, seed=seed, device=device)
     with Service() as svc:
         svc.add_graph("g", pg)
+        on_card = pg.device.type == "cuda"
+        if on_card:  # the first report is cold by construction: new allocator blocks
+            torch.cuda.empty_cache()
         rep = pg.explain_analyze(pool[0])
         rep2 = pg.explain_analyze(pool[0])  # warm: the first call's costs paid
-        assert rep.total_first_ms >= rep.steady_ms >= 0
-        assert rep2.compile_ms <= rep.compile_ms
+        for r in (rep, rep2):
+            assert r.total_first_ms >= r.steady_ms >= 0
+        if on_card:
+            # only a cold first report has a one-off share to compare; on
+            # the CPU nothing is paid once and both readings are jitter
+            assert rep2.compile_ms <= rep.compile_ms
         wl = synthetic_workload(["g"], pool, requests, seed=seed + 1)
         run_workload(svc, wl, concurrency)
         m1 = parse_prometheus(svc.metrics_text())
@@ -829,7 +885,31 @@ def smoke(m: int = 600, requests: int = 24, concurrency: int = 4,
             set_enabled(prev)
     print("pgserve smoke: observability (metrics/traces/explain_analyze) OK")
 
-    print(f"pgserve smoke: mesh check {MESH_SKIPPED}")
+    # the same tenant on an entity mesh: its stores sharded, every answer
+    # the single-device graph's; no dense copy of a store is kept
+    mesh = smoke_mesh(device)
+    pg1 = build_tenant_graph("arr", m, seed=seed, device=device)
+    pg2 = build_tenant_graph("arr", m, mesh=mesh, seed=seed)
+    with Service() as svc:
+        svc.add_graph("sharded", pg2)
+        for pattern in pool[:4]:
+            got = svc.query_batch("sharded", [pattern])[0]
+            assert (_np(got.edge_mask) == _np(pg1.match(pattern).edge_mask)).all(), pattern
+        # weighted analytics on the mesh: the min all-reduce is exact
+        # (bitwise), PageRank's sum reassociates (atol)
+        seeds = _np(pg1.graph.node_map)[:4]
+        assert np.array_equal(svc.shortest_paths("sharded", seeds, weight="w"),
+                              _np(pg1.shortest_paths(seeds, weight="w")))
+        assert np.allclose(svc.pagerank("sharded", weight="w"), _np(pg1.pagerank(weight="w")),
+                           atol=1e-5)
+        # sampling runs on the lead device: blocks bitwise the unsharded graph's
+        nodes = _np(pg1.graph.node_map)
+        _assert_blocks_equal(
+            svc.sample("sharded", nodes[:32], [4], pattern="(a)-[:follows]->(b)", seed=5),
+            pg1.sample(nodes[:32], [4], pattern="(a)-[:follows]->(b)", seed=5), "mesh sample")
+    for store in (pg2._vstore, pg2._estore):
+        assert store._store is None and store._host is None and store._sharded is not None
+    print(f"pgserve smoke: mesh P={mesh.size} ≡ single-device OK", flush=True)
     _packed_parity_block(m, seed, device)
     print("PGSERVE SMOKE OK")
 
@@ -855,7 +935,7 @@ def main() -> None:
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--concurrency", type=int, default=8)
     ap.add_argument("--mesh", action="store_true",
-                    help="multi-device mesh: not ported yet (ROADMAP A10), raises")
+                    help="place tenant graphs on an entity mesh (every card, or the CPU)")
     ap.add_argument("--metrics", action="store_true",
                     help="dump the Prometheus exposition after the workload "
                          "(fetched over the wire in --net mode)")
@@ -870,8 +950,6 @@ def main() -> None:
               graphs=args.graphs, m=args.m, seed=args.seed, mesh=args.mesh,
               warm=args.warm, device=args.device)
         return
-    if args.mesh:
-        raise NotImplementedError("--mesh: multi-device meshes are not ported yet (ROADMAP A10)")
     if args.net and args.smoke:
         net_smoke(seed=args.seed, device=args.device)
         return
@@ -881,7 +959,8 @@ def main() -> None:
                                    "--backend", args.backend,
                                    "--m", str(args.m),
                                    "--seed", str(args.seed), "--warm",
-                                   "--device", args.device])
+                                   "--device", args.device,
+                                   *(["--mesh"] if args.mesh else [])])
         try:
             names = [f"tenant{i}" for i in range(args.graphs)]
             wl = synthetic_workload(names, pattern_pool(), args.requests,
@@ -907,9 +986,9 @@ def main() -> None:
 
     from repro_torch.service import Service
 
+    where = {"mesh": cli_mesh(args.device)} if args.mesh else {"device": args.device}
     graphs = {
-        f"tenant{i}": build_tenant_graph(args.backend, args.m, seed=args.seed + i,
-                                         device=args.device)
+        f"tenant{i}": build_tenant_graph(args.backend, args.m, seed=args.seed + i, **where)
         for i in range(args.graphs)
     }
     pool = pattern_pool()

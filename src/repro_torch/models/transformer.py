@@ -78,7 +78,7 @@ class TransformerConfig:
     moe_expert_axis: Optional[str] = None
     moe_tp_axis: Optional[str] = None
     moe_virtual_split: int = 1
-    # sequence and batch sharding (multi-device, ROADMAP A10): kept, unused
+    # sequence and batch sharding (multi-device training, ROADMAP A15): kept, unused
     seq_shard_axis: Optional[str] = None
     batch_shard_axes: Optional[Tuple[str, ...]] = None
     # embedding

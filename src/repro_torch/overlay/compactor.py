@@ -25,6 +25,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import dip_shard
 from repro_torch.core.attr_map import AttributeMap
 from repro_torch.core.di import build_di, edge_lookup
 from repro_torch.core.property_graph import PropGraph, _AttrStore
@@ -67,6 +68,8 @@ def compact_propgraph(pg: PropGraph) -> PropGraph:
 
     # ---- rebuild structure from surviving original-id edges --------------
     new_g = build_di(nm_old[src[alive_e]], nm_old[dst[alive_e]], device=dev)
+    if pg.mesh is not None:  # the new structure is placed as the old one was
+        new_g = dip_shard.place_graph(new_g, pg.mesh)
     nm_new = new_g.node_map.cpu().numpy()
 
     # old internal id → new internal id (−1 = dropped).  The new universe is
@@ -90,7 +93,7 @@ def compact_propgraph(pg: PropGraph) -> PropGraph:
 
     # ---- attribute stores: replay the pair history remapped --------------
     def replay(n_rows, values, ent, att, remap):
-        store = _AttrStore(pg.backend, n_rows, dev)
+        store = _AttrStore(pg.backend, n_rows, dev, mesh=pg.mesh)  # re-shards when it seals
         store.amap = AttributeMap(values)  # id order preserved → same masks
         if ent.size:
             ne = remap[ent]

@@ -15,10 +15,11 @@ mutators, never edited in place.  Torch tensors CAN be edited in place, so
 this is a rule the port keeps: a write builds a new tensor (out-of-place
 ``index_put``/``index_fill``/``cat``) and reassigns it.
 
-  shared by reference   base DIGraph tensors, sealed DIP stores, the
-                        ``_host`` stash, ``_counts``, ``_base_keys``, typed
-                        property columns, tombstone arrays (copy-on-write
-                        reassign), pair/delta CHUNK arrays
+  shared by reference   base DIGraph tensors, sealed DIP stores (on a mesh
+                        their shards), the ``_host`` stash, ``_counts``,
+                        ``_base_keys``, typed property columns, tombstone
+                        arrays (copy-on-write reassign), pair/delta CHUNK
+                        arrays
   private per clone     chunk LISTS (appends diverge), delta index dicts,
                         AttributeMap (interning mutates), props dicts,
                         mutation hooks, the combined-view, alive-mask and

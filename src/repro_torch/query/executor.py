@@ -25,6 +25,15 @@
 Every step is a plain torch op on the graph's device; the bool scatter-OR
 counts arrivals (``queries.scatter_or``), so no hop reads anything back to
 the host.  Only the ``*`` closure's exit test does, once per round.
+
+Sharded execution (``PropGraph(mesh=...)``): stage 1 runs shard-local —
+every DIP mask comes off a query that touches only each shard's own entity
+slice (``core.dip_shard``) — and takes the bool combine, as the
+reference's does.  At the combination point the per-slot masks are
+gathered onto the mesh's lead device (``_gather_masks``), where the
+predicate columns and the DI arrays live, and the chain propagation runs
+there; masks are small (1 byte/entity) next to the stores the shard-local
+stage avoided streaming.
 """
 from __future__ import annotations
 
@@ -303,15 +312,28 @@ def _execute_plan_packed(pg, plan: Plan) -> "MatchResult":
         [edge_words.get(i) for i in range(len(epreds))],
         vpreds, epreds, pg._alive_words("node"), pg._alive_words("edge"),
         n=g.n, m=g.m, device=g.device)
-    return _finish_propagation(plan, g, cands, emasks)
+    return _finish_propagation(pg, plan, g, cands, emasks)
+
+
+def _packed_combine_applies(pg) -> bool:
+    """The packed end-to-end combine: single-device arr graphs whose stores
+    hold word planes (list and listd answer bool masks).  Mesh graphs keep
+    the bool combine, as the reference's do, but still scan packed planes
+    inside ``dip_shard``."""
+    return (pg.backend == "arr" and getattr(pg, "mesh", None) is None
+            and pg._vstore.packed and pg._estore.packed)
+
+
+def _gather_masks(masks, mesh):
+    """The sharded pipeline's gather: every combined per-slot mask on the
+    mesh's lead device, where the propagation runs."""
+    return [m.to(mesh.lead, non_blocking=True) for m in masks]
 
 
 def execute_plan(pg, plan: Plan) -> "MatchResult":
     """Execute ``plan`` against ``pg``; see the module docstring for stages."""
     pg._require_graph()  # the documented RuntimeError, before store access
-    # the packed combine is for arr stores holding word planes; list and
-    # listd stores answer bool masks
-    if pg.backend == "arr" and pg._vstore.packed and pg._estore.packed:
+    if _packed_combine_applies(pg):
         return _execute_plan_packed(pg, plan)
     label_masks, rel_masks = _materialize(pg, plan, "query_any_batched", "query_any")
     return execute_plan_with_masks(pg, plan, label_masks, rel_masks)
@@ -353,12 +375,17 @@ def execute_plan_with_masks(pg, plan: Plan, label_masks: Dict[int, torch.Tensor]
     if av is not None:
         cands = [c & av for c in cands]
     emasks = [pg._and_alive_edges(e) for e in emasks]
-    return _finish_propagation(plan, g, cands, emasks)
+    return _finish_propagation(pg, plan, g, cands, emasks)
 
 
-def _finish_propagation(plan: Plan, g: DIGraph, cands, emasks) -> "MatchResult":
-    """The static-hop chain propagation and result packaging, shared by the
-    bool and packed combine paths."""
+def _finish_propagation(pg, plan: Plan, g: DIGraph, cands, emasks) -> "MatchResult":
+    """The shared stage-3 tail: a mesh graph's masks gathered onto its lead
+    device (nothing to do on one device), the static-hop chain propagation
+    and result packaging — the same for the bool and packed combines."""
+    mesh = getattr(pg, "mesh", None)
+    if mesh is not None:
+        cands = _gather_masks(cands, mesh)
+        emasks = _gather_masks(emasks, mesh)
     hops = tuple((e.direction, e.lo, -1 if e.hi is None else e.hi) for e in plan.pattern.edges)
     vmask, emask, node_masks, alive = _propagate(g, cands, emasks, hops)
     return MatchResult(vertex_mask=vmask, edge_mask=emask, node_masks=node_masks,

@@ -296,7 +296,9 @@ class PGClient:
     # ------------------------------------------------------------- registry
     def load_graph(self, name: str, path: str, *,
                    backend: Optional[str] = None, mesh: bool = False) -> Dict:
-        """Server-side ``load_propgraph`` + register; returns {n, m, backend}."""
+        """Server-side ``load_propgraph`` + register; returns {n, m, backend}.
+        ``mesh=True`` reopens the save onto the server's entity mesh (its
+        ``server_info()["devices"]`` shards)."""
         return self._call("load_graph", name=name, path=path,
                           backend=backend, mesh=mesh)
 

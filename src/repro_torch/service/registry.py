@@ -8,9 +8,9 @@ entry is (name → graph), the graph carries its own monotone ``version``
 fans mutation events out to subscribers (the service's result-cache
 invalidation hook).
 
-A registered graph keeps whatever device it was built or loaded on — the
-registry never touches device state.  Meshes are not ported yet
-(ROADMAP A10): ``load(..., mesh=...)`` raises.
+A registered graph keeps whatever device or entity mesh it was built or
+loaded with (``PropGraph(mesh=...)`` / ``load_propgraph(path, mesh=...)``)
+— the registry never touches device state.
 """
 from __future__ import annotations
 
@@ -83,15 +83,12 @@ class GraphRegistry:
     def load(self, name: str, path: str, *, backend: Optional[str] = None,
              mesh=None, device=None) -> PropGraph:
         """``load_propgraph`` + ``register`` — reopen an ingested-once graph
-        on ``device`` (None: the CUDA card) and serve it by name.  A
-        ``mesh`` raises before the path is read: the sharded reopen waits
-        for the multi-GPU port (ROADMAP A10)."""
+        on ``device`` (None: the CUDA card), or straight onto an entity
+        ``mesh``, and serve it by name."""
         from repro_torch.core.io import load_propgraph
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "loading onto a multi-device mesh is not ported yet (ROADMAP A10)")
-        return self.register(name, load_propgraph(path, backend=backend, device=device))
+        return self.register(name, load_propgraph(path, backend=backend, mesh=mesh,
+                                                  device=device))
 
     # -------------------------------------------------------------- queries
     def get(self, name: str) -> PropGraph:

@@ -16,8 +16,10 @@ Request ops (header ``{"op": ..., "id": ...}`` + optional array blobs):
                                        service + process registries (§13)
     traces                           recent trace trees + slow-query log
     load_graph {name, path, backend, mesh}   registry.load from disk onto
-                                       the server's device (a mesh
-                                       raises: ROADMAP A10)
+                                       the server's device, or with
+                                       ``mesh`` onto the server's entity
+                                       mesh (every card; one CPU device
+                                       for a CPU server)
     query {graph, pattern, impl}     → Service.submit(); the response is
                                        written when the FUTURE resolves,
                                        so a pipelining client overlaps
@@ -473,11 +475,16 @@ class PGServer:
                 "slow": self.service.slow_queries()}, ()
 
     def _op_load_graph(self, header, arrays):
+        mesh = device = None
         if header.get("mesh"):
-            raise NotImplementedError(
-                "loading onto a multi-device mesh is not ported yet (ROADMAP A10)")
+            from repro_torch.launch.mesh import make_entity_mesh
+
+            mesh = (make_entity_mesh() if self.device.type == "cuda"
+                    else make_entity_mesh(devices=[self.device]))
+        else:
+            device = self.device
         self.service.load_graph(header["name"], header["path"],
-                                backend=header.get("backend"), device=self.device)
+                                backend=header.get("backend"), mesh=mesh, device=device)
         pg = self.service.registry.get(header["name"])
         return {"name": header["name"], "n": pg.n_vertices,
                 "m": pg.n_edges, "backend": pg.backend}, ()

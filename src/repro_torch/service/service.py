@@ -182,8 +182,8 @@ class Service:
 
     def load_graph(self, name: str, path: str, *, backend: Optional[str] = None,
                    mesh=None, device=None) -> "Service":
-        """Reopen a saved graph on ``device`` (None: the CUDA card) and serve
-        it; a ``mesh`` raises (ROADMAP A10)."""
+        """Reopen a saved graph on ``device`` (None: the CUDA card), or
+        straight onto an entity ``mesh``, and serve it."""
         self.registry.load(name, path, backend=backend, mesh=mesh, device=device)
         return self
 

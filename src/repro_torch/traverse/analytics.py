@@ -17,9 +17,15 @@ filter the traversal; no subgraph is materialized.
 
 Each fixed point is a Python loop with one host read per round, counted
 in ``engine.rounds`` under the function's name (see ``engine``).
+
+``shortest_paths_sharded`` and ``pagerank_sharded`` run the same loops
+with the relax sharded over an entity mesh (``engine``'s sharded path):
+the min all-reduce is exact, so shortest paths stay bitwise; PageRank's
+sum reassociates and agrees within tolerance.
 """
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Optional, Tuple
 
 import torch
@@ -31,17 +37,23 @@ from repro_torch.traverse.engine import (
     COUNTING,
     MINLABEL,
     TROPICAL,
+    EdgeBlocks,
     _all_edges,
     _ends,
     _ends64,
     _fixed_point,
+    _pad_edges,
     _relax,
+    _shard_edge_vals,
+    _sharded_relax_fn,
 )
 
 __all__ = [
     "components_masked",
     "shortest_paths_masked",
+    "shortest_paths_sharded",
     "pagerank_masked",
+    "pagerank_sharded",
     "label_propagation_masked",
     "single_hop_filters",
 ]
@@ -123,6 +135,49 @@ def shortest_paths_masked(
     return _fixed_point("shortest_paths", step, dist0, bound)
 
 
+@lru_cache(maxsize=None)
+def _sharded_bellman_fn(mesh, direction: int, undirected: bool):
+    """Tropical Bellman–Ford whose relax runs sharded: per-shard partial
+    (n,) distance vectors, ⊕-combined with ONE min all-reduce a round.  min
+    over f32 is exact, so the result is bitwise the single-device path."""
+    relax = _sharded_relax_fn(mesh, direction, undirected, TROPICAL)
+
+    def fn(dist0: torch.Tensor, ew: torch.Tensor, *, max_iters: int, blocks: EdgeBlocks,
+           nan_exact: bool) -> torch.Tensor:
+        ew_parts = _shard_edge_vals(ew, blocks, mesh, TROPICAL.zero)
+        return _fixed_point(
+            "shortest_paths",
+            lambda dist: torch.minimum(dist, relax(blocks, ew_parts, dist, nan_exact)),
+            dist0, max_iters)
+
+    return fn
+
+
+def shortest_paths_sharded(
+    g: DIGraph,
+    seed_mask: torch.Tensor,
+    weights: Optional[torch.Tensor] = None,
+    edge_allowed: Optional[torch.Tensor] = None,
+    *,
+    mesh,
+    direction: int = 1,
+    undirected: bool = False,
+    max_iters: Optional[int] = None,
+    blocks: Optional[EdgeBlocks] = None,
+) -> torch.Tensor:
+    """``shortest_paths_masked`` with the sharded relax (``blocks``: the
+    graph's cached ``_pad_edges``); bitwise the single-device path."""
+    w = (torch.ones(g.m, dtype=torch.float32, device=g.device) if weights is None
+         else weights.to(torch.float32))
+    ew = torch.where(_all_edges(g, edge_allowed), w, float("inf"))
+    dist0 = torch.where(seed_mask, 0.0, float("inf")).to(torch.float32)
+    blocks = blocks if blocks is not None else _pad_edges(g, mesh, direction)
+    fn = _sharded_bellman_fn(mesh, direction, undirected)
+    bound = (g.n + 1) if max_iters is None else max_iters
+    return fn(dist0, ew, max_iters=bound, blocks=blocks,
+              nan_exact=bool(((ew < 0) | torch.isnan(ew)).any()))
+
+
 # ------------------------------------------------------------ pagerank (+, ×)
 def pagerank_masked(
     g: DIGraph,
@@ -166,6 +221,60 @@ def pagerank_masked(
         r = r_new if vertex_allowed is None else torch.where(vertex_allowed, r_new, 0.0)
     engine.rounds["pagerank"] = engine.rounds.get("pagerank", 0) + iters
     return r
+
+
+@lru_cache(maxsize=None)
+def _sharded_pagerank_fn(mesh, direction: int):
+    """Power iteration whose aggregation runs sharded: per-shard partial
+    contribution sums, ⊕-combined with ONE sum all-reduce a step.  The
+    float sums reassociate across shard blocks, so the ranks agree with
+    the single-device path within tolerance, not bitwise."""
+    relax = _sharded_relax_fn(mesh, direction, False, COUNTING)
+
+    def fn(g: DIGraph, v_ok: torch.Tensor, w: torch.Tensor, damping: float, *, iters: int,
+           blocks: EdgeBlocks) -> torch.Tensor:
+        tail, _ = _ends(g, direction)
+        w_parts = _shard_edge_vals(w, blocks, mesh, COUNTING.zero)
+        n_eff = v_ok.to(torch.float32).sum().clamp(min=1.0)
+        out_deg = torch.zeros(g.n, dtype=torch.float32, device=g.device).index_add_(0, tail, w)
+        inv_deg = torch.where(out_deg > 0, 1.0 / out_deg.clamp(min=1e-30), 0.0)
+        r = torch.where(v_ok, 1.0 / n_eff, 0.0)
+        for _ in range(iters):
+            agg = relax(blocks, w_parts, r * inv_deg)
+            dangling = torch.where(out_deg > 0, 0.0, r).sum()
+            r_new = (1 - damping) / n_eff + damping * (agg + dangling / n_eff)
+            r = torch.where(v_ok, r_new, 0.0)
+        engine.rounds["pagerank"] = engine.rounds.get("pagerank", 0) + iters
+        return r
+
+    return fn
+
+
+def pagerank_sharded(
+    g: DIGraph,
+    vertex_allowed: Optional[torch.Tensor] = None,
+    edge_allowed: Optional[torch.Tensor] = None,
+    weights: Optional[torch.Tensor] = None,
+    *,
+    mesh,
+    damping: float = 0.85,
+    iters: int = 20,
+    direction: int = 1,
+    blocks: Optional[EdgeBlocks] = None,
+) -> torch.Tensor:
+    """``pagerank_masked`` with the sharded aggregation; equal to the
+    single-device path within float tolerance."""
+    w = (torch.ones(g.m, dtype=torch.float32, device=g.device) if weights is None
+         else weights.to(torch.float32))
+    if edge_allowed is not None:
+        w = torch.where(edge_allowed, w, 0.0)
+    tail, head = _ends(g, direction)
+    v_ok = _all_vertices(g, vertex_allowed)
+    if vertex_allowed is not None:
+        w = torch.where(gather(v_ok, tail) & gather(v_ok, head), w, 0.0)
+    blocks = blocks if blocks is not None else _pad_edges(g, mesh, direction)
+    return _sharded_pagerank_fn(mesh, direction)(g, v_ok, w, damping, iters=iters,
+                                                 blocks=blocks)
 
 
 # ------------------------------------------------- label propagation (mode)

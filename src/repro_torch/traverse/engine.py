@@ -27,11 +27,20 @@ their cap with the state still changing.
 The Boolean, tropical and min-label instances are exact (idempotent ⊕);
 the counting (+, ×) instance sums floats, whose order ``index_add_`` does
 not fix on the card, so it agrees with the reference within a tolerance.
+
+The sharded path (an ``EntityMesh``, ``launch/mesh.py``) relaxes each
+shard's own block of the padded edge list (``_pad_edges``) into a partial
+(n,) vector on the shard's device, and ONE all-reduce named by
+``Semiring.allreduce`` ⊕-combines the partials (``launch/collectives.py``):
+the value vector is all that moves between devices a step.  The exact
+instances stay bitwise the single-device relax; the counting one sums its
+partials in shard order.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from functools import lru_cache
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +61,9 @@ __all__ = [
     "khop_mask",
     "reach_closure",
     "khop_csr",
+    "semiring_relax_sharded",
+    "khop_mask_sharded",
+    "reach_closure_sharded",
     "rounds",
     "capped",
     "reset_rounds",
@@ -64,27 +76,29 @@ _I32_MAX = int(np.iinfo(np.int32).max)
 class Semiring:
     """One relax algebra: ⊕ combines messages at a vertex, ⊗ extends a
     vertex value along an edge.  ``zero`` is the ⊕ identity and the ⊗
-    absorber, so an all-``zero`` relax input is a fixed point."""
+    absorber, so an all-``zero`` relax input is a fixed point.
+    ``allreduce`` names the matching cross-shard ⊕ (``collectives.all_reduce``)."""
 
     name: str
     zero: object  # ⊕ identity / ⊗ absorber (False, +inf, 0.0, INT32_MAX)
     scatter: str  # the ⊕ scatter combine: "max" | "min" | "add"
     extend: Callable  # ⊗: (tail value, edge value) → message
+    allreduce: str  # the cross-shard ⊕: "max" | "min" | "sum"
 
 
 # (OR, AND) over bool — reachability.
-BOOLEAN = Semiring("boolean", False, "max", lambda x, w: x & w)
+BOOLEAN = Semiring("boolean", False, "max", lambda x, w: x & w, "max")
 
 # (min, +) over f32 — weighted shortest paths.  A masked edge carries +inf.
-TROPICAL = Semiring("tropical", float("inf"), "min", lambda x, w: x + w)
+TROPICAL = Semiring("tropical", float("inf"), "min", lambda x, w: x + w, "min")
 
 # (+, ×) over f32 — weighted SpMV, the PageRank contribution step.
-COUNTING = Semiring("counting", 0.0, "add", lambda x, w: x * w)
+COUNTING = Semiring("counting", 0.0, "add", lambda x, w: x * w, "sum")
 
 # (min, select) over int32 — the component min-hook: an allowed edge
 # forwards the tail's label, a masked edge the identity.
 MINLABEL = Semiring("minlabel", _I32_MAX, "min",
-                    lambda x, w: torch.where(w, x, _I32_MAX))
+                    lambda x, w: torch.where(w, x, _I32_MAX), "min")
 
 rounds: Dict[str, int] = {}
 capped: Dict[str, int] = {}
@@ -296,3 +310,150 @@ def khop_csr(
         levels += 1
     rounds["khop_csr"] = rounds.get("khop_csr", 0) + levels
     return reached
+
+
+# ------------------------------------------------------------- sharded path
+@dataclasses.dataclass(frozen=True)
+class EdgeBlocks:
+    """The (tail, head) endpoint arrays of one walking direction, padded to
+    a multiple of P and cut into P contiguous int64 blocks, block ``i`` on
+    the mesh's ``devices[i]``.  Pad edges point at vertex 0."""
+
+    tail: Tuple[torch.Tensor, ...]
+    head: Tuple[torch.Tensor, ...]
+    m: int  # real edges; the rest of each block's tail is padding
+    m_pad: int
+
+
+def _pad_edges(g: DIGraph, mesh, direction: int) -> EdgeBlocks:
+    """The per-shard edge blocks of ``g`` walked in ``direction``.  They
+    depend on the graph alone, so ``PropGraph`` caches them per version and
+    direction; the edge values of each call are cut to match by
+    ``_shard_edge_vals``."""
+    tail, head = _ends64(g, direction)
+    p = mesh.size
+    m_pad = (-(-max(g.m, 1) // p)) * p
+    pad = m_pad - g.m
+    if pad:
+        tail = torch.cat([tail, tail.new_zeros(pad)])
+        head = torch.cat([head, head.new_zeros(pad)])
+    step = m_pad // p
+    return EdgeBlocks(
+        tail=tuple(tail[i * step:(i + 1) * step].to(d) for i, d in enumerate(mesh.devices)),
+        head=tuple(head[i * step:(i + 1) * step].to(d) for i, d in enumerate(mesh.devices)),
+        m=g.m, m_pad=m_pad)
+
+
+def _shard_edge_vals(vals: torch.Tensor, blocks: EdgeBlocks, mesh, pad_value):
+    """A call's (m,) edge values cut as ``blocks`` is.  Pad edges carry the
+    semiring's ⊗ absorber (False / +inf / 0.0), so the relax reads them but
+    they never contribute a message."""
+    pad = blocks.m_pad - vals.shape[0]
+    if pad:
+        vals = torch.cat([vals, vals.new_full((pad,), pad_value)])
+    step = blocks.m_pad // mesh.size
+    return tuple(vals[i * step:(i + 1) * step].to(d) for i, d in enumerate(mesh.devices))
+
+
+@lru_cache(maxsize=None)
+def _sharded_relax_fn(mesh, direction: int, undirected: bool, sr: Semiring):
+    """ONE semiring relax over the mesh: every shard relaxes only its own
+    block of the edges into a partial (n,) vector on its device, and ONE
+    ``sr.allreduce`` all-reduce ⊕-combines the partials.  Cached per (mesh,
+    direction, undirected, semiring); returns the lead's copy."""
+    from repro_torch.launch.collectives import all_reduce, broadcast
+
+    def step(blocks: EdgeBlocks, ev_parts, x: torch.Tensor, nan_exact: bool = False):
+        parts = [_relax(t, h, x.shape[0], xi, ev, sr, undirected, nan_exact)
+                 for t, h, ev, xi in zip(blocks.tail, blocks.head, ev_parts,
+                                         broadcast(x, mesh.devices))]
+        return all_reduce(parts, sr.allreduce)[0]
+
+    return step
+
+
+def semiring_relax_sharded(
+    g: DIGraph,
+    x: torch.Tensor,
+    edge_vals: torch.Tensor,
+    sr: Semiring,
+    *,
+    mesh,
+    direction: int = 1,
+    undirected: bool = False,
+    blocks: Optional[EdgeBlocks] = None,
+) -> torch.Tensor:
+    """:func:`semiring_relax` with the per-step sharded layout (``blocks``:
+    the graph's cached ``_pad_edges``, built here when None).  The
+    idempotent-⊕ semirings (Boolean, tropical, min-label) are bitwise the
+    single-device relax; :data:`COUNTING` sums its partials in shard order
+    and agrees within tolerance only."""
+    blocks = blocks if blocks is not None else _pad_edges(g, mesh, direction)
+    step = _sharded_relax_fn(mesh, direction, undirected, sr)
+    return step(blocks, _shard_edge_vals(edge_vals, blocks, mesh, sr.zero), x,
+                nan_exact=x.is_floating_point())
+
+
+@lru_cache(maxsize=None)
+def _sharded_khop_fn(mesh, direction: int, undirected: bool, packed: bool = False):
+    """Boolean k-hop whose step is the sharded relax on a frontier mask.
+    ``packed=False``: int8 partials and a max all-reduce, 1 byte/entity a
+    step.  ``packed=True`` (the default layout): each shard packs its
+    partial into words and the step rides ``bitplane.or_allreduce`` — 1
+    bit/entity a step, the packed plane's 8× cut applied to the only thing
+    the sharded frontier exchanges."""
+    from repro_torch.core import bitplane
+    from repro_torch.launch.collectives import all_reduce, broadcast
+
+    def step(blocks: EdgeBlocks, e_parts, mask: torch.Tensor) -> torch.Tensor:
+        n = mask.shape[0]
+        parts = [_relax(t, h, n, f, e, BOOLEAN, undirected)
+                 for t, h, e, f in zip(blocks.tail, blocks.head, e_parts,
+                                       broadcast(mask, mesh.devices))]
+        if packed:
+            words = bitplane.or_allreduce([bitplane.pack_mask(p) for p in parts])
+            return bitplane.unpack_mask(words[0], n)
+        return all_reduce([p.to(torch.int8) for p in parts], "max")[0] > 0
+
+    def fn(seed_mask: torch.Tensor, e_ok: torch.Tensor, *, k: int,
+           blocks: EdgeBlocks) -> torch.Tensor:
+        e_parts = _shard_edge_vals(e_ok, blocks, mesh, False)
+        return _fixed_point("khop", lambda mask: mask | step(blocks, e_parts, mask),
+                            seed_mask, k)
+
+    return fn
+
+
+def khop_mask_sharded(
+    g: DIGraph,
+    seed_mask: torch.Tensor,
+    edge_allowed: Optional[torch.Tensor] = None,
+    *,
+    k: int,
+    mesh,
+    direction: int = 1,
+    undirected: bool = False,
+    blocks: Optional[EdgeBlocks] = None,
+) -> torch.Tensor:
+    """``khop_mask`` with the per-step sharded layout; bitwise the
+    single-device path (packed or byte exchange: OR is OR either way)."""
+    from repro_torch.core import bitplane
+
+    blocks = blocks if blocks is not None else _pad_edges(g, mesh, direction)
+    fn = _sharded_khop_fn(mesh, direction, undirected, bitplane.packed_default())
+    return fn(seed_mask, _all_edges(g, edge_allowed), k=k, blocks=blocks)
+
+
+def reach_closure_sharded(
+    g: DIGraph,
+    seed_mask: torch.Tensor,
+    edge_allowed: Optional[torch.Tensor] = None,
+    *,
+    mesh,
+    direction: int = 1,
+    undirected: bool = False,
+    blocks: Optional[EdgeBlocks] = None,
+) -> torch.Tensor:
+    """Sharded fixed-point expansion (n rounds always suffice)."""
+    return khop_mask_sharded(g, seed_mask, edge_allowed, k=g.n + 1, mesh=mesh,
+                             direction=direction, undirected=undirected, blocks=blocks)

@@ -162,7 +162,7 @@ def test_plane_only_store_does_not_save(tmp_path):
 
 def test_load_contracts(tmp_path, monkeypatch):
     path = tio.save_propgraph(str(tmp_path / "g"), _port())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):  # a mesh is an EntityMesh
         tio.load_propgraph(path, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="backend"):
         tio.load_propgraph(path, backend="nope", device="cpu")

@@ -386,13 +386,26 @@ def _exercise(pkg):
         fork.insert_edges(nodes[:8], nodes[-8:])
 
         class Reg:
+            def __init__(self, graph):
+                self.graph = graph
+
             def names(self):
                 return ["f"]
 
             def get(self, name):
-                return fork
+                return self.graph
 
-        assert pkg.Compactor(Reg(), threshold=1).sweep() == 1
+        assert pkg.Compactor(Reg(fork), threshold=1).sweep() == 1
+        # a failing compaction: its counter is part of the exposition too,
+        # whichever tests ran before in this process
+        failing = g.fork()
+        failing.insert_edges(nodes[:4], nodes[-4:])
+
+        def boom():
+            raise RuntimeError("a failing compaction")
+
+        failing.compact = boom
+        assert pkg.Compactor(Reg(failing), threshold=1).sweep() == 0
         server = pkg.server(svc).start()
         try:
             with pkg.PGClient(port=server.port, timeout=60) as c:
@@ -417,7 +430,8 @@ def test_expositions_list_the_same_metric_names():
     assert port == ref
     for name in ("pg_exec_plans_total", "pg_sample_launches_total", "pg_traverse_runs_total",
                  "pg_traverse_relax_rounds", "pg_profile_runs_total", "pg_wire_op_ms",
-                 "pg_sched_coalesce_width", "pg_compact_compactions_total"):
+                 "pg_sched_coalesce_width", "pg_compact_compactions_total",
+                 "pg_compact_failures_total"):
         assert name in port, name
 
 

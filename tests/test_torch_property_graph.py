@@ -239,18 +239,20 @@ def test_from_arrays_of_reference_state(byte):
                       again.match("(a:mid)-[:likes*]->(b:rare)"))
 
 
-def test_unported_parts_raise():
+def test_unported_parts_raise(tmp_path):
     with pytest.raises(ValueError, match="save_propgraph"):  # planes are arr-only
         PropGraph(backend="list", device="cpu").add_edges_from([1], [2]).to_arrays()
     with pytest.raises(ValueError, match="backend"):
         PropGraph(backend="nope", device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # meshes are ported (tests/test_torch_shard_pg.py); what is not a mesh raises
+    with pytest.raises(TypeError, match="mesh"):
         PropGraph(mesh=object(), device="cpu")
+    from repro_torch.core.io import save_propgraph
     from repro_torch.service import GraphRegistry
 
-    with pytest.raises(NotImplementedError, match="mesh"):  # the service's sharded reopen
-        GraphRegistry().load("g", "unread", mesh=object())
     _, port = build_pair(raw_inputs(0))
+    with pytest.raises(TypeError, match="mesh"):  # the service's sharded reopen
+        GraphRegistry().load("g", save_propgraph(str(tmp_path / "g"), port), mesh=object())
     # the overlay is ported: a write after the seal lands in the delta, and
     # a snapshot refuses writes
     port.add_node_labels(as_np(port.graph.node_map)[:2], "late")
