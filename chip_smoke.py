@@ -119,7 +119,8 @@ none of whose failures is caught:
    kernel's own time from the profiler (``ms`` also holds the host's time
    when a launch is shorter than the host's call); B1 and B2 also with
    every row selected; flash_attention also beside the mma.sync kernel it
-   replaced on the path;
+   replaced on the path; B5ᵀ at 3j (a)'s backward shapes and B4's backward
+   at 3j (b)'s, beside cuSPARSE and ``F.embedding_bag``'s backward;
 3h. last, after phase 5 (see ``run``), the service and wire layer over the
    same graph (``service_phase``):
    8 closed-loop client threads send 256 requests (zipf 1.1 over phase 3's
@@ -146,7 +147,25 @@ none of whose failures is caught:
    communities and a sample of ``(a:l0)`` bitwise the single-device
    graph's, PageRank within an L1 distance, 5 service requests bitwise;
    one request on byte shards; each sharded query launches B1 (B2 on the
-   byte shards) once per shard, read from the wrappers' counters.
+   byte shards) once per shard, read from the wrappers' counters;
+3j. training, in three places: (a) inside 3c on its feature table
+   (``train_gnn_phase``): ``gcn_cora.full_config()`` on 1,024-seed 15-10
+   minibatches of ``GNN_SEED_POOL`` under ``GNN_FILTER`` drawn from (seed,
+   step), AdamW as ``examples/gnn_sampled_training.py``; step 0's loss and
+   every gradient within ``TRAIN_TOL`` of the CPU port on the same batch,
+   30 steps under the ``TrainController`` (checkpoints every 10, a failure
+   at 17) bitwise the unbroken run, 20 steps on one batch whose loss must
+   fall, B5 four launches a step (two B5ᵀ), one layout per orientation a
+   step, B3 every step and no B1 (the pool is 3c's, the filter's mask the
+   graph's cached one); (b) after phase 5 (``train_dlrm_phase``), on 3d's model: 65,536-row
+   ``train_batch`` steps, step 0's loss and gradients against the CPU port
+   fed only the rows the batch names, every other row's gradient exactly 0,
+   bitwise across two calls, a sparse rowwise update against the dense
+   one, 3 dense AdamW steps; (c, d) after 3i, ``python -m
+   repro_torch.launch.train`` for GCN and DLRM as subprocesses, each
+   printing ``done``, and B6 refusing a gradient.  Phase 2 holds B5ᵀ and
+   B4's backward to the plain backward; phase 5 times both, B5ᵀ at (a)'s
+   backward shapes and at the population request's.
 
 Kernel launch counts are zeroed right before each path and read right
 after it; a kernel of the path that did not launch fails the run.  The
@@ -253,6 +272,16 @@ LM_F32_TOL = 1e-4  # f32 logits (atol = rtol) of paths whose matmuls round diffe
 # attention, measured on the H100); a model with its window off lands ~13 away
 # (PERF.md, PR 15)
 LM_DEPTH_TOL = 3e-2
+# training (phase 3j): GCN at minibatch_lg's shape with examples/gnn_sampled_training.py's
+# AdamW; DLRM at RECSYS_SHAPES["train_batch"], dense AdamW at lr 1e-3 from step 1
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT, TRAIN_FIXED_STEPS = 30, 10, 17, 20
+GNN_TRAIN_OPT = dict(lr=5e-3, warmup_steps=5, total_steps=100)  # the example's AdamWConfig
+DLRM_TRAIN_STEPS = 3
+DLRM_TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10_000)
+TRAIN_TOL = 1e-4  # card vs CPU loss and gradients (atol = rtol): cuBLAS and CPU sum in other orders
+SPARSE_LR = 0.01  # sparse_table_update's default
+SPARSE_UPDATE_TOL = 1e-6  # sparse vs dense row updates: duplicates summed in other orders
+TRAIN_CLI_TIMEOUT = 300  # seconds for each training CLI run as a subprocess
 
 
 def check(cond: bool, what: str) -> None:
@@ -537,6 +566,7 @@ def kernel_checks(device) -> dict:
     window_select_checks(device)
     embedding_bag_checks(device)
     seg_mm_checks(device)
+    train_backward_checks(device)
     shares = flash_attention_checks(device)
     torch.cuda.synchronize()
     return shares
@@ -2231,8 +2261,17 @@ def forward_kernels(forward, what: str, kernel: str, banned: str) -> dict:
             "kernels": [(e.key[:60], e.self_device_time_total / 1e3, e.count) for e in events]}
 
 
+def seed_pool(pg) -> np.ndarray:
+    """The original ids of the vertices ``GNN_SEED_POOL``'s first node
+    binds (one ``match()``: B1 on the card)."""
+    res = pg.match(GNN_SEED_POOL)
+    mask = (res.node_masks[0] if res.node_masks else res.vertex_mask).cpu().numpy()
+    return pg.graph.node_map.cpu().numpy()[np.flatnonzero(mask)]
+
+
 def gnn_phase(pg, seed: int, device: str, sync) -> dict:
-    """Phase 3c (module docstring).  Returns per-kind results and the
+    """Phase 3c (module docstring), then phase 3j (a) on its feature table
+    (``train_gnn_phase``, under "train").  Returns per-kind results and the
     population request's B5 inputs for phase 5."""
     import torch
 
@@ -2251,9 +2290,7 @@ def gnn_phase(pg, seed: int, device: str, sync) -> dict:
     labels = torch.randint(0, N_CLASSES, (n,), generator=gen, device=device, dtype=torch.int32)
     cfg = gcn_cora.full_config(d_feat=D_FEAT, n_classes=N_CLASSES)  # spmm_di: B5 on the card
     model = gcn.GCN(cfg, gcn.init_params(gen, cfg, device=device))
-    res = pg.match(GNN_SEED_POOL)
-    pool_mask = (res.node_masks[0] if res.node_masks else res.vertex_mask).cpu().numpy()
-    pool = pg.graph.node_map.cpu().numpy()[np.flatnonzero(pool_mask)]
+    pool = seed_pool(pg)
     rng = np.random.default_rng(seed + 6)
 
     def serve(seeds, key):
@@ -2332,6 +2369,8 @@ def gnn_phase(pg, seed: int, device: str, sync) -> dict:
         del batch
         out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     out["b5_inputs"] = b5_inputs
+    # phase 3j (a): training on the same table, before it is freed
+    out["train"] = train_gnn_phase(pg, pool, feats, labels, seed, device, sync)
     del feats, labels, model
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -2543,6 +2582,7 @@ def recsys_phase(seed: int, device: str, sync) -> dict:
         out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     del cands
     out["b4_calls"] = {"tables": params["tables"], "serve_p99": p99_idx, "serve_bulk": bulk_idx}
+    out["model"] = (params, cfg)  # phase 3j (b) trains it after phase 5
     return out
 
 
@@ -2617,6 +2657,420 @@ def context_phase(pg, seed: int, device: str, sync) -> dict:
         out["profile"] = sample_profile(request)
     del table, cpu_items
     return out
+
+
+# ---------------------------------------------------------------- phase 3j: training
+def grads_of(loss, params, batch):
+    """(loss, {leaf path: gradient}) of ``loss(params, batch)`` by autograd,
+    the params left as they are."""
+    import torch
+
+    from repro_torch.optim.tree import flatten_with_paths, unflatten
+
+    pairs, spec = flatten_with_paths(params)
+    flat = [p.detach().requires_grad_(True) for _, p in pairs]
+    value = loss(unflatten(spec, flat), batch)
+    grads = torch.autograd.grad(value, flat)
+    return value.detach(), {name: g for (name, _), g in zip(pairs, grads)}
+
+
+def train_gnn_phase(pg, pool, feats, labels, seed: int, device: str, sync) -> dict:
+    """Phase 3j (a), inside 3c while its feature table and seed pool live:
+    ``gcn_cora.full_config()`` trained on ``minibatch_lg``-shaped batches
+    (1,024 seeds of ``pool``, 3c's ``GNN_SEED_POOL``, drawn from (seed,
+    step), 15-10 under ``GNN_FILTER``, whose mask the graph has cached
+    since 3c, so the steps launch no B1) with the example's AdamW.  Step 0's
+    loss and gradients against the CPU port on the same batch; 30 steps
+    under the ``TrainController`` with a failure at 17, bitwise the
+    unbroken run; 20 steps on one batch, whose loss must fall.  Returns the results and
+    B5ᵀ's calls at a step's backward shapes for phase 5."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import gcn_cora
+    from repro_torch.ft import FailureInjector, TrainController
+    from repro_torch.graph.segment_ops import degree_norm
+    from repro_torch.kernels.bitmap_query import ops as bq_ops
+    from repro_torch.kernels.neighbor_sample import ops as ns_ops
+    from repro_torch.kernels.seg_mm import ops
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import gcn
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.optim.tree import leaves, tree_map
+
+    t_phase = time.perf_counter()
+    opt_cfg = AdamWConfig(**GNN_TRAIN_OPT)
+    cfg = gcn_cora.full_config()
+    check(cfg.d_in == feats.shape[1] and cfg.n_classes == N_CLASSES,
+          "3j: gcn_cora.full_config() takes 3c's feature table and classes")
+    gen = torch.Generator(device=device).manual_seed(seed + 30)
+    params0 = gcn.init_params(gen, cfg, device=device)
+    out = {"config": cfg.name, "d_in": cfg.d_in, "steps": TRAIN_STEPS}
+    sampled = {}
+
+    def batch_fn(step):  # step-addressed: the seeds and the sampler's key from (seed, step)
+        ids = np.random.default_rng([seed, step]).choice(pool, min(GNN_BATCH, len(pool)),
+                                                          replace=False)
+        t0 = time.perf_counter()
+        blocks = pg.sample(ids, FANOUTS, seed=seed * 100_003 + step, pattern=GNN_FILTER)
+        sync()
+        sampled["ms"] = (time.perf_counter() - t0) * 1e3
+        return subgraph_batch(blocks, blocks[-1].dst_nodes, feats, labels)
+
+    def loss(p, b):
+        return gcn.loss_fn(p, b, cfg)
+
+    def fresh():
+        p = tree_map(lambda t: t.clone(), params0)
+        return p, init_state(p)
+
+    # (1) step 0's loss and every gradient against the CPU port on the same batch
+    b0 = batch_fn(0)
+    ops.reset_launches()
+    builds0 = dict(ops.LAYOUTS.builds_by_orientation)
+    card_loss, card_grads = grads_of(loss, params0, b0)
+    sync()
+    step_launches = dict(ops.launches)
+    step_builds = {k: v - builds0[k] for k, v in ops.LAYOUTS.builds_by_orientation.items()}
+    cpu_loss, cpu_grads = grads_of(loss, tree_map(lambda t: t.cpu(), params0), b0.to("cpu"))
+    errs = [check_close(card_loss, cpu_loss, TRAIN_TOL, "3j GCN step-0 loss")]
+    errs += [check_close(g, cpu_grads[k], TRAIN_TOL, f"3j GCN step-0 gradient {k}")
+             for k, g in card_grads.items()]
+    if device == "cuda":
+        check(step_launches[ops.SEG_MM] == 4 and step_launches[ops.SEG_MM_T] == 2,
+              f"3j: a GCN step launches B5 twice forward and B5ᵀ twice backward: {step_launches}")
+        check(step_builds == {ops.FORWARD: 1, ops.TRANSPOSE: 1},
+              f"3j: a step builds each B5 layout once: {step_builds}")
+    out["step0"] = {"loss": float(card_loss), "max_abs_err": max(errs), "n_sub": b0.n_nodes,
+                    "e_sub": b0.n_edges, "launches": step_launches, "layout_builds": step_builds}
+    # phase 5's B5ᵀ calls at this step's backward shapes (x: a gradient of a layer's output)
+    w = degree_norm(b0.edge_src, b0.edge_dst, b0.n_nodes) * b0.edge_mask.to(torch.float32)
+    t_src, t_dst = ops.transposed_edges(b0.edge_dst, b0.n_nodes, b0.edge_src, b0.n_nodes)
+    out["b5t_calls"] = [(torch.randn((b0.n_nodes, d), generator=gen, device=device), t_src,
+                         t_dst, b0.n_nodes, w) for d in (cfg.n_classes, cfg.d_hidden)]
+
+    # (2) 30 steps, checkpoints every 10, a failure at 17: bitwise the unbroken run
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+
+    def run(fail_at, where):
+        logs = []
+
+        def log(step, m):
+            logs.append({"step": step, "loss": float(m["loss"]), "sample": sampled["ms"],
+                         **m["ms"]})
+
+        ctrl = TrainController(ckpt=CheckpointManager(os.path.join(ckpt_root, where), keep=2),
+                               step_fn=make_train_step(loss, batch_fn, opt_cfg, sync=sync),
+                               ckpt_every=TRAIN_CKPT_EVERY)
+        t0 = time.perf_counter()
+        state = ctrl.run(fresh(), TRAIN_STEPS, log=log,
+                         injector=FailureInjector(fail_at) if fail_at else None)
+        sync()
+        return state, logs, time.perf_counter() - t0
+
+    try:
+        ops.reset_launches()
+        ns_ops.reset_launches()
+        bq_ops.reset_launches()
+        builds0 = dict(ops.LAYOUTS.builds_by_orientation)
+        whole, whole_logs, whole_s = run((), "whole")
+        out["launches"] = {"b5": ops.launches[ops.SEG_MM], "b5t": ops.launches[ops.SEG_MM_T],
+                           "b1": bq_ops.launches[bq_ops.PACKED],
+                           "b3": ns_ops.launches[ns_ops.WINDOW_SELECT]}
+        out["layout_builds"] = {k: v - builds0[k]
+                                for k, v in ops.LAYOUTS.builds_by_orientation.items()}
+        broken, broken_logs, broken_s = run((TRAIN_FAIL_AT,), "broken")
+        check(all(torch.equal(a, b) for a, b in zip(leaves(whole), leaves(broken))),
+              f"3j: {TRAIN_STEPS} steps with a failure at {TRAIN_FAIL_AT} (restored from step "
+              f"{TRAIN_FAIL_AT // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY}) end bitwise equal to the "
+              "unbroken run")
+        check(all(t.device.type == device for t in leaves(broken) if t.dim()),
+              "3j: the restarted run stayed on its device")
+        resumed = TRAIN_FAIL_AT // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY
+        check([x["loss"] for x in broken_logs[TRAIN_FAIL_AT:]]
+              == [x["loss"] for x in whole_logs[resumed:]],
+              "3j: the resumed steps' losses equal the unbroken run's")
+        mgr = CheckpointManager(os.path.join(ckpt_root, "timed"), keep=1)
+        t0 = time.perf_counter()
+        mgr.save_sync(TRAIN_STEPS, whole)
+        t1 = time.perf_counter()
+        _, back = mgr.restore_latest(whole)
+        sync()
+        t2 = time.perf_counter()
+        check(all(torch.equal(a, b) for a, b in zip(leaves(whole), leaves(back))),
+              "3j: a checkpoint restores bit for bit")
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    steps = whole_logs[1:]  # step 0 pays the first layout builds and allocations
+    out["step_ms"] = {k: statistics.median(x[k] for x in steps)
+                      for k in ("sample", "batch", "forward", "backward", "update")}
+    out["step_ms"]["batch"] -= out["step_ms"]["sample"]  # the host's renumbering and uploads
+    out["step_ms"]["total"] = statistics.median(
+        sum(x[k] for k in ("batch", "forward", "backward", "update")) for x in steps)
+    out.update(losses=[x["loss"] for x in whole_logs], run_s=whole_s, restarted_run_s=broken_s,
+               checkpoint_ms=(t1 - t0) * 1e3, restore_ms=(t2 - t1) * 1e3)
+    if device == "cuda":
+        launches, builds = out["launches"], out["layout_builds"]
+        check(launches["b5"] >= 4 * TRAIN_STEPS and launches["b5t"] >= 2 * TRAIN_STEPS,
+              f"3j: B5 launched >= 4 a step, B5ᵀ >= 2: {launches}")
+        check(builds == {ops.FORWARD: TRAIN_STEPS, ops.TRANSPOSE: TRAIN_STEPS},
+              f"3j: one layout per orientation a step: {builds}")
+        check(launches["b3"] >= TRAIN_STEPS, f"3j: every step launched B3: {launches}")
+        check(launches["b1"] == 0, "3j: the steps launched no B1 (the seed pool is 3c's, the "
+                                   f"edge filter's mask the graph's cached one): {launches}")
+
+    # (3) 20 steps on one batch: the loss must fall
+    step_fn = make_train_step(loss, lambda step: b0, opt_cfg)
+    state, fixed = fresh(), []
+    for step in range(TRAIN_FIXED_STEPS):
+        state, m = step_fn(state, step)
+        fixed.append(float(m["loss"]))
+    check(fixed[-1] < fixed[0], f"3j: the loss falls on one batch: {fixed[0]} -> {fixed[-1]}")
+    out["fixed_batch_losses"] = fixed
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def train_dlrm_phase(params, cfg, seed: int, device: str, sync) -> dict:
+    """Phase 3j (b), after phase 5 on 3d's model (at full width on the card:
+    26 × 1,000,000 × 64 f32 tables): ``RECSYS_SHAPES["train_batch"]`` rows
+    from ``dlrm_batch``.  Step 0's loss, MLP gradients and the gradient rows
+    the batch names against the CPU port fed only those rows; every other
+    row's gradient exactly 0; the gradients bitwise equal across two calls;
+    one ``sparse_table_update`` against ``dense_rowwise_update``; then 3
+    dense AdamW steps (written into ``params``)."""
+    import torch
+
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.data import dlrm_batch
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.seg_mm import ops as sm_ops
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import dlrm
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.optim.sparse_tables import (dense_rowwise_update, init_rowwise_state,
+                                                 sparse_table_update)
+
+    t_phase = time.perf_counter()
+    rows = RECSYS_SHAPES["train_batch"]["batch"]
+    tables = params["tables"]
+    f, v, d = tables.shape
+    out = {"config": cfg.name, "rows": rows, "vocab": v}
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    def host_batch(step):
+        return dlrm_batch(step, batch=rows, vocab=cfg.vocab_size, seed=seed + 40, device="cpu")
+
+    def batch_fn(step):  # requests arrive from the host
+        return {k: t.to(device) for k, t in host_batch(step).items()}
+
+    def loss(p, b):
+        return dlrm.loss_fn(p, b["dense"], b["sparse"], b["labels"], cfg)
+
+    eb_ops.reset_launches()
+    sm_ops.reset_launches()
+    hb = host_batch(0)
+    b = {k: t.to(device) for k, t in hb.items()}
+    t0 = time.perf_counter()
+    card_loss, grads = grads_of(loss, params, b)
+    sync()
+    out["grad_ms"] = (time.perf_counter() - t0) * 1e3
+    if device == "cuda":  # B4's backward on B5 sums in one order (the CPU's plain one need not)
+        _, again = grads_of(loss, params, b)
+        check(all(torch.equal(g, again[k]) for k, g in grads.items()),
+              "3j DLRM: the step's gradients are bitwise equal across two calls")
+        del again
+    # against the CPU port fed only the rows the batch names (3d's held_rows)
+    held, local = held_rows(tables, b["sparse"])
+    cpu_loss, cpu_grads = grads_of(loss, cpu_params(params, held),
+                                   {"dense": hb["dense"], "sparse": local, "labels": hb["labels"]})
+    errs = [check_close(card_loss, cpu_loss, TRAIN_TOL, "3j DLRM step-0 loss")]
+    errs += [check_close(g, cpu_grads[k], TRAIN_TOL, f"3j DLRM step-0 gradient {k}")
+             for k, g in grads.items() if k != "tables"]
+    touched = torch.zeros((f, v), dtype=torch.bool, device=tables.device)
+    for j in range(f):
+        named = torch.unique(b["sparse"][:, j]).to(torch.int64)
+        touched[j, named] = True
+        errs.append(check_close(grads["tables"][j, named], cpu_grads["tables"][j, :len(named)],
+                                TRAIN_TOL, f"3j DLRM step-0 gradient of table {j}'s named rows"))
+    check(not bool(((grads["tables"] != 0).any(dim=-1) & ~touched).any()),
+          "3j DLRM: every row the batch does not name has gradient exactly 0")
+    out["step0"] = {"loss": float(card_loss), "max_abs_err": max(errs),
+                    "rows_named": int(touched.sum())}
+
+    # one sparse rowwise update against the dense one on the same gradient
+    captured = {}
+    lookup = dlrm._embedding_bag
+
+    def leaf_bags(t, idx, c):  # the bags as a leaf: their gradient is what the sparse update pulls
+        captured["bags"] = lookup(t, idx, c).detach().requires_grad_(True)
+        return captured["bags"]
+
+    dlrm._embedding_bag = leaf_bags
+    try:
+        (g_bags,) = torch.autograd.grad(loss(params, b), captured["bags"])
+    finally:
+        dlrm._embedding_bag = lookup
+    mh = b["sparse"].shape[2]
+    pulled = (g_bags.unsqueeze(2).expand(-1, -1, mh, -1)
+              / torch.full((), float(mh), device=g_bags.device))
+    acc = init_rowwise_state(tables)
+    t0 = time.perf_counter()
+    t_sp, a_sp = sparse_table_update(tables, acc, b["sparse"], pulled, lr=SPARSE_LR)
+    sync()
+    t1 = time.perf_counter()
+    t_dn, a_dn = dense_rowwise_update(tables, acc, grads["tables"], lr=SPARSE_LR)
+    sync()
+    t2 = time.perf_counter()
+    for what, t_new, a_new in (("sparse", t_sp, a_sp), ("dense", t_dn, a_dn)):
+        check(not bool(((t_new != tables).any(dim=-1) & ~touched).any())
+              and not bool(((a_new != 0) & ~touched).any()),
+              f"3j DLRM: the {what} update leaves every untouched row bitwise unchanged")
+    err_t = float((t_sp - t_dn).abs().max())
+    err_a = float((a_sp - a_dn).abs().max())
+    check(err_t <= SPARSE_UPDATE_TOL and err_a <= SPARSE_UPDATE_TOL,
+          f"3j DLRM: sparse and dense updates within {SPARSE_UPDATE_TOL} on touched rows "
+          f"(tables {err_t}, accumulators {err_a})")
+    out["sparse_update"] = {"sparse_ms": (t1 - t0) * 1e3, "dense_ms": (t2 - t1) * 1e3,
+                            "max_abs_err_tables": err_t, "max_abs_err_acc": err_a}
+    del t_sp, a_sp, t_dn, a_dn, acc, pulled, g_bags, grads, cpu_grads, held
+
+    # 3 dense AdamW steps, written into ``params`` (the reference's jit donates them)
+    step_fn = make_train_step(loss, batch_fn, AdamWConfig(**DLRM_TRAIN_OPT), sync=sync)
+    state, logs = (params, init_state(params)), []
+    for step in range(DLRM_TRAIN_STEPS):
+        state, m = step_fn(state, step)
+        logs.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), **m["ms"]})
+    check(all(np.isfinite(x["loss"]) for x in logs), "3j DLRM: finite losses")
+    del state
+    out["steps"] = logs
+    out["step_ms"] = {k: statistics.median(x[k] for x in logs[1:])
+                      for k in ("batch", "forward", "backward", "update")}
+    out["launches"] = {"b4": eb_ops.launches[eb_ops.EMBEDDING_BAG],
+                       "b4_backward": eb_ops.launches[eb_ops.EMBEDDING_BAG_BACKWARD],
+                       "b5": sm_ops.launches[sm_ops.SEG_MM]}
+    if device == "cuda":
+        calls = DLRM_TRAIN_STEPS + 3  # the steps, two gradient calls and the bags' gradient
+        check(out["launches"]["b4"] >= calls and out["launches"]["b4_backward"]
+              >= DLRM_TRAIN_STEPS + 2, f"3j DLRM: B4 forward and backward launched on every "
+                                       f"step: {out['launches']}")
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def train_cli_phase(device: str) -> dict:
+    """Phase 3j (c): ``python -m repro_torch.launch.train`` for GCN and DLRM
+    (12 steps, checkpoints every 4, a failure at 6) as subprocesses on
+    ``device``; each must exit 0 and print ``done``."""
+    out = {}
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src") + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    for arch in ("gcn-cora", "dlrm-rm2"):
+        ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+                                   "--steps", "12", "--ckpt-every", "4", "--fail-at", "6",
+                                   "--ckpt-dir", ckpt_dir, "--device", device],
+                                  capture_output=True, text=True, env=env, cwd=ROOT,
+                                  timeout=TRAIN_CLI_TIMEOUT)
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        lines = proc.stdout.strip().splitlines()
+        check(proc.returncode == 0 and lines and lines[-1].startswith("done"),
+              f"3j train --arch {arch} exits 0 with 'done': rc {proc.returncode}\n"
+              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        out[arch] = {"s": time.perf_counter() - t0, "done": lines[-1]}
+    return out
+
+
+def b6_refuses_grad(device: str) -> str:
+    """Phase 3j (d): B6 on CUDA tensors that require a gradient raises
+    ``NotImplementedError`` (its backward is ROADMAP A15b)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+
+    q = torch.randn((1, 128, 4, 64), dtype=torch.bfloat16, device=device, requires_grad=True)
+    k = torch.randn((1, 128, 2, 64), dtype=torch.bfloat16, device=device)
+    try:
+        ops.flash_attention(q, k, k)
+    except NotImplementedError as e:
+        return str(e)
+    check(False, "3j: B6 refuses a gradient on the card")
+
+
+def train_backward_checks(device) -> None:
+    """Phase 2's backward passes: B5ᵀ (``seg_mm``'s backward) against the
+    plain version's autograd over ragged shapes with src ids outside
+    [-N, N), dst outside [0, n), a node count unlike N_src, empty rows and a
+    hub, weighted and not; B4's backward (on B5) against the plain
+    version's over ragged shapes with ids outside [-V, V) and MH = 0, in f32
+    and bf16 (held to the f32 plain backward cast to bf16).  Sums within
+    ``SUM_RTOL`` of Σ|terms|, and bitwise run to run."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.embedding_bag import ref as eb_ref
+    from repro_torch.kernels.seg_mm import ops, ref
+
+    gen = torch.Generator(device="cpu").manual_seed(4)
+
+    def grad_x(fn, x, cot):
+        xg = x.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(fn(xg), xg, cot)
+        return g
+
+    for d in (1, 7, 16, 64):
+        for n_src, n, e in ((1, 1, 3), (37, 23, 91), (5000, 3000, 40_000),
+                            (20_000, 20_000, 60_000)):
+            src = torch.randint(-n_src - 3, n_src + 3, (e,), dtype=torch.int32, generator=gen)
+            dst = torch.randint(-2, n + 2, (e,), dtype=torch.int32, generator=gen)
+            if n_src >= 5000:
+                src[: e // 4] = 3  # a hub source of degree >= 10,000
+            x = torch.randn((n_src, d), generator=gen)
+            cot = torch.randn((n, d), generator=gen)
+            w = torch.rand(e, generator=gen)
+            x, src, dst, cot, w = (t.to(device) for t in (x, src, dst, cot, w))
+            for ew in (None, w):
+                got = grad_x(lambda t: ops.seg_mm(t, src, dst, n, edge_weight=ew), x, cot)
+                want = grad_x(lambda t: ref.seg_mm_ref(t, src, dst, n, edge_weight=ew), x, cot)
+                scale = grad_x(lambda t: ref.seg_mm_ref(
+                    t, src, dst, n, edge_weight=None if ew is None else ew.abs()), x, cot.abs())
+                what = f"B5ᵀ D={d} N_src={n_src} n={n} E={e} weighted={ew is not None}"
+                check(sums_close(got, want, scale), what)
+                check(got.equal(grad_x(lambda t: ops.seg_mm(t, src, dst, n, edge_weight=ew),
+                                       x, cot)), what + " run to run")
+    for b, f, mh, v, d in ((8, 4, 3, 100, 16), (16, 26, 1, 500, 64), (37, 5, 2, 40, 7),
+                           (512, 26, 1, 100_000, 64), (4, 2, 0, 10, 8), (0, 26, 1, 10, 64)):
+        tables = torch.randn((f, v, d), generator=gen)
+        idx = torch.randint(-v - 3, v + 3, (b, f, mh), dtype=torch.int32, generator=gen)
+        cot = torch.randn((b, f, d), generator=gen)
+        tables, idx, cot = (t.to(device) for t in (tables, idx, cot))
+        plain = eb_ref.embedding_bag_ref(tables.requires_grad_(True), idx)
+        want = (torch.autograd.grad(plain, tables, cot)[0] if plain.requires_grad
+                else torch.zeros_like(tables))
+        scale = (torch.autograd.grad(eb_ref.embedding_bag_ref(tables, idx), tables, cot.abs())[0]
+                 if plain.requires_grad else torch.zeros_like(tables))
+        tables = tables.detach()
+        for dtype in (torch.float32, torch.bfloat16):
+            t = tables.to(dtype).requires_grad_(True)
+            what = f"B4 backward B={b} F={f} MH={mh} V={v} D={d} {dtype}"
+            got = torch.autograd.grad(eb_ops.embedding_bag_fields(t, idx), t, cot.to(dtype))[0]
+            again = torch.autograd.grad(eb_ops.embedding_bag_fields(t, idx), t, cot.to(dtype))[0]
+            check(got.dtype == dtype and got.equal(again), what + " run to run")
+            if dtype == torch.float32:
+                check(sums_close(got, want, scale), what)
+            else:  # f32 sums of the bf16 cotangent, cast once: within a bf16 rounding
+                t32 = tables.clone().requires_grad_(True)
+                plain = eb_ref.embedding_bag_ref(t32, idx)
+                want16 = (torch.autograd.grad(plain, t32, cot.to(dtype).float())[0]
+                          if plain.requires_grad else torch.zeros_like(tables))
+                check(bool(((got.float() - want16).abs()
+                            <= 2.0**-8 * want16.abs() + SUM_RTOL * scale + 1e-6).all()), what)
 
 
 # ------------------------------------------------------------ LM serving
@@ -3037,6 +3491,59 @@ def embedding_bag_entry(name: str, tables, idxs, launches: int) -> dict:
                       "distinct_rows": torch.unique(flat[0]).numel()}}
 
 
+def embedding_bag_backward_entry(name: str, tables, idx, launches: int) -> dict:
+    """Phase 5's line for B4's backward (``embedding_bag_ops.bag_gradient``:
+    B5 over the (field, row) layout) at phase 3j (b)'s shape: the batch's
+    indices, a cotangent of the bags drawn at random.  The plain version is
+    autograd's backward through B4's plain version, the library call
+    ``F.embedding_bag(mode="mean")``'s backward over the flattened table
+    stack (each timed on a graph built once).  The bound counts the
+    bytes the function must move: the bags' gradient and the indices read
+    once and the dense (F, V, D) gradient written once."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import ops, ref
+
+    f, v, d = tables.shape
+    b, _, mh = idx.shape
+    gen = torch.Generator(device=tables.device).manual_seed(17)
+    cot = torch.randn((b, f, d), generator=gen, device=tables.device)
+
+    def call():  # keeps no output: the profiled calls' 6.66 GB results are not held together
+        ops.bag_gradient(cot, idx, tables.shape, tables.dtype)
+
+    got = ops.bag_gradient(cot, idx, tables.shape, tables.dtype)
+    t = tables.detach().requires_grad_(True)  # aliases: no copies of the 6.66 GB tables
+    plain_out = ref.embedding_bag_ref(t, idx)
+    want = torch.autograd.grad(plain_out, t, cot, retain_graph=True)[0]
+    scale = torch.autograd.grad(plain_out, t, cot.abs(), retain_graph=True)[0]
+    check(sums_close(got, want, scale), f"timed {name} agrees with its plain version")
+    field = torch.arange(f, device=idx.device).view(1, f, 1) * v
+    flat = (idx.to(torch.int64) + field).view(-1)
+    offsets = torch.arange(0, flat.numel(), max(mh, 1), device=idx.device)
+    rows = tables.view(f * v, d).detach().requires_grad_(True)
+    lib_out = torch.nn.functional.embedding_bag(flat, rows, offsets, mode="mean")
+    lib_cot = cot.view(b * f, d)
+    lib = torch.autograd.grad(lib_out, rows, lib_cot, retain_graph=True)[0].view(f, v, d)
+    needed = cot.numel() * 4 + idx.numel() * 4 + f * v * d * tables.element_size()
+    entry = {"name": name, "route": "cuda", "source": SOURCES["seg_mm"],
+             "replaces": "src/repro/kernels/embedding_bag/kernel.py:42",
+             "launches": launches,
+             "max_abs_err": float((got - want).abs().max()),
+             "ms": time_ms(call),
+             "device_ms": kernel_device_ms(call, "seg_mm_kernel")["ms"],
+             "plain_ms": time_ms(lambda: torch.autograd.grad(plain_out, t, cot,
+                                                             retain_graph=True), 10),
+             "bound_ms": needed / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+             "library_ms": time_ms(lambda: torch.autograd.grad(lib_out, rows, lib_cot,
+                                                               retain_graph=True), 10),
+             "layout_ms": time_ms(lambda: ops.backward_layout(idx, v), 10),
+             "library_max_abs_err": float((lib - want).abs().max()),
+             "shape": {"B": b, "F": f, "MH": mh, "V": v, "D": d}}
+    del got, want, scale, lib, plain_out, lib_out, t, rows
+    return entry
+
+
 def selected_rows_bytes(table, masks) -> int:
     """Bytes a bitmap query must move: the rows that some query selects
     (each read once), the masks, and the output written once."""
@@ -3192,6 +3699,21 @@ def seg_mm_entry(name: str, call, launches: int) -> dict:
                       "D": int(d)}}
 
 
+def transposed_call(call, seed: int):
+    """B5ᵀ's call for a recorded B5 call (x, src, dst, n, weights): a random
+    (n, D) gradient of the forward's output, read over the transposed edges
+    (``transposed_edges``) into x's N_src rows."""
+    import torch
+
+    from repro_torch.kernels.seg_mm import ops
+
+    x, src, dst, n, w = call
+    gen = torch.Generator(device=x.device).manual_seed(seed + 41)
+    t_src, t_dst = ops.transposed_edges(dst, n, src, x.shape[0])
+    return torch.randn((n, x.shape[1]), generator=gen, device=x.device), t_src, t_dst, \
+        x.shape[0], w
+
+
 def full_graph_call(pg, seed: int):
     """Phase 5's full-graph B5 shape: graph3's whole DI edge list with
     ``degree_norm`` weights over a random (n, 16) x on the card."""
@@ -3209,7 +3731,9 @@ def full_graph_call(pg, seed: int):
 def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
     import torch
 
+    from repro_torch.configs.common import RECSYS_SHAPES
     from repro_torch.core import PropGraph, bitplane
+    from repro_torch.data import dlrm_batch
     from repro_torch.graph.generators import random_uniform_graph
     from repro_torch.kernels.bitmap_query import kernel, ops, ref
     from repro_torch.kernels.embedding_bag import kernel as eb_kernel
@@ -3301,10 +3825,23 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
     print("phase 3c ok: logits equal the CPU port's within", GNN_TOL,
           json.dumps({k: out["gnn"][k]["check"] for k in ("minibatch", "population")}),
           flush=True)
+    train_gnn = out["gnn"].pop("train")
+    b5t_calls = train_gnn.pop("b5t_calls")
+    print("phase 3j (a) timings", json.dumps({
+        k: train_gnn[k] for k in ("phase_s", "step_ms", "run_s", "restarted_run_s",
+                                  "checkpoint_ms", "restore_ms")}), flush=True)
+    print("phase 3j (a) ok: GCN step-0 loss and gradients within", TRAIN_TOL, "of the CPU port;",
+          f"{TRAIN_STEPS} steps with a failure at {TRAIN_FAIL_AT} bitwise the unbroken run;",
+          "the loss falls on one batch", json.dumps({
+              "step0": train_gnn["step0"], "launches": train_gnn["launches"],
+              "layout_builds": train_gnn["layout_builds"],
+              "fixed_batch_loss": [train_gnn["fixed_batch_losses"][i] for i in (0, -1)]}),
+          flush=True)
 
     # --- phase 3d: recsys serving (DLRM-RM2), then the graph-side user context
     out["recsys"] = recsys_phase(seed, device, sync)
     b4_calls = out["recsys"].pop("b4_calls")
+    dlrm_model = out["recsys"].pop("model")
     out["context"] = context_phase(pg, seed, device, sync)
     print("phase 3d timings", json.dumps({
         **{k: (out["recsys"][k]["median_ms"], out["recsys"][k]["b4_launches"])
@@ -3436,16 +3973,42 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
               for kind, idxs in (("serve_p99", b4_calls["serve_p99"]),
                                  ("serve_bulk", b4_calls["serve_bulk"]))]
         check(all(e["max_abs_err"] == 0 for e in b4), "timed B4 exact")
+        b5t = [seg_mm_entry(f"seg_mm transposed (B5ᵀ) 3j GCN backward, layer {2 - i}", call,
+                            train_gnn["launches"]["b5t"])
+               for i, call in enumerate(b5t_calls)]
+        b5t.append(seg_mm_entry("seg_mm transposed (B5ᵀ) population layer 1 backward",
+                                transposed_call(b5_calls[0], seed),
+                                train_gnn["launches"]["b5t"]))
+        train_idx = dlrm_batch(0, batch=RECSYS_SHAPES["train_batch"]["batch"],
+                               vocab=dlrm_model[1].vocab_size, seed=seed + 40,
+                               device="cpu")["sparse"].to(device)  # 3j (b)'s step 0
+        b4b = embedding_bag_backward_entry("embedding_bag backward (B4 on B5) 3j train_batch",
+                                           b4_calls["tables"], train_idx, 0)
+        del train_idx
         b6 = [flash_attention_entry(f"flash_attention (B6) prefill_8k {kind} layer", call,
                                     out["lm"]["prefill_8k"]["b6_launches_by_layer"][kind])
               for kind, call in zip(("local", "global"), b6_calls)]
         check(all(e["kernel"] == "sm90" for e in b6), "prefill_8k's layers ran the wgmma/TMA kernel")
-        out["kernels"] = [b1, b2, b3, *b4, *b5, *b6]
+        out["kernels"] = [b1, b2, b3, *b4, b4b, *b5, *b5t, *b6]
         for entry in out["kernels"]:  # on the kernel's own time
             entry["share_of_bound"] = entry["bound_ms"] / entry["device_ms"]
             if "device_ms_cold_l2" in entry:
                 entry["share_of_bound_cold_l2"] = entry["bound_ms"] / entry["device_ms_cold_l2"]
-    del b4_calls, b6_calls
+    del b4_calls, b6_calls, b5t_calls
+
+    # --- phase 3j (b): DLRM training on 3d's model, after phase 5 so that phase 5's
+    # profiler sessions keep the age they had (on_card)
+    out["train_dlrm"] = train_dlrm_phase(*dlrm_model, seed, device, sync)
+    del dlrm_model
+    tr = out["train_dlrm"]
+    print("phase 3j (b) timings", json.dumps({
+        k: tr[k] for k in ("phase_s", "grad_ms", "step_ms", "sparse_update")}), flush=True)
+    print("phase 3j (b) ok: DLRM step-0 loss, MLP gradients and the named rows' gradients",
+          "within", TRAIN_TOL, "of the CPU port; other rows exactly 0;",
+          "on the card bitwise run to run;",
+          "the sparse update within", SPARSE_UPDATE_TOL, "of the dense one", json.dumps(
+              {"step0": tr["step0"], "launches": tr["launches"],
+               "losses": [x["loss"] for x in tr["steps"]]}), flush=True)
 
     # --- phase 3h: the service and wire layer over the same graph.  It runs after phase 5:
     # placed after 3g it aged the process by its 40 s and two subprocesses, and phase 5's
@@ -3491,7 +4054,30 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
               "shard_bytes": {b: one[b]["shard_bytes"] for b in ("arr", "list", "listd")},
               "pagerank_l1": one["arr"]["analytics"]["pagerank_l1"]}), flush=True)
 
+    # --- phase 3j (c), (d): the training CLI on the card; B6 refuses a gradient
+    out["train_cli"] = train_cli_phase(device)
     if device == "cuda":
+        out["b6_refuses_grad"] = b6_refuses_grad(device)
+    print("phase 3j (c, d) ok: the training CLI exits 0 with 'done' for GCN and DLRM;",
+          "B6 refuses a gradient on the card", json.dumps(
+              {"cli": out["train_cli"], "b6": out.get("b6_refuses_grad")}), flush=True)
+
+    if device == "cuda":
+        train = {"gnn": train_gnn["launches"], "dlrm": out["train_dlrm"]["launches"]}
+        for entry, launches in ((b1, train["gnn"]["b1"]), (b3, train["gnn"]["b3"])):
+            entry["launches_by_path"]["train"] = launches
+            entry["launches"] += launches
+        for entry in b4:
+            entry["launches_by_path"] = {"serve": entry["launches"], "train": train["dlrm"]["b4"]}
+            entry["launches"] += train["dlrm"]["b4"]
+        b4b["launches"] = train["dlrm"]["b4_backward"]
+        b4b["launches_by_path"] = {"train": b4b["launches"]}
+        for entry in b5:  # B5 in training: the GCN's forward and B5ᵀ, and B4's backward
+            entry["launches_by_path"] = {"gnn": entry["launches"],
+                                         "train": train["gnn"]["b5"] + train["dlrm"]["b5"]}
+            entry["launches"] += entry["launches_by_path"]["train"]
+        for entry in b5t:
+            entry["launches_by_path"] = {"train": entry["launches"]}
         for entry, launches in ((b1, svc_out["b1_launches"]), (b3, svc_out["b3_launches"])):
             entry["launches_by_path"]["service"] = launches
             entry["launches"] += launches
@@ -3502,7 +4088,7 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
         out["peak_mem_gib"] = max(torch.cuda.max_memory_allocated() / 2**30,
                                   out["gnn"]["peak_mem_gib"], out["gnn"]["peak_mem_gib_before"],
                                   out["recsys"]["peak_mem_gib"], out["lm"]["peak_mem_gib"],
-                                  svc_out["mem_peak_gib"])
+                                  out["train_dlrm"]["peak_mem_gib"], svc_out["mem_peak_gib"])
     return out
 
 

@@ -15,6 +15,12 @@ the card to the plain version: a refused launch raises.
 ``launches`` counts kernel launches (never plain-version calls): the total
 under ``FLASH_ATTENTION`` and each kernel under ``COUNTERS[variant]``;
 ``reset_launches()`` zeroes them.
+
+B6 has no backward kernel yet (ROADMAP A15b): on CUDA tensors, a call
+with grad mode on and q, k or v requiring a gradient raises
+``NotImplementedError`` rather than returning an output autograd cannot
+see through.  Serving runs under ``torch.inference_mode()`` or on weights
+that need no gradient, and the CPU's plain path keeps autograd.
 """
 from __future__ import annotations
 
@@ -74,6 +80,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap,
                                        q_offset=q_offset)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            f"{FLASH_ATTENTION}: B6 has no backward kernel on the card yet (ROADMAP A15b); "
+            "call it under torch.no_grad() or on tensors that need no gradient")
     if q.numel() == 0 or k.shape[1] == 0:  # no keys: every output row sums nothing
         return torch.zeros(q.shape, dtype=q.dtype, device=q.device)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)

@@ -18,14 +18,14 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.configs import gemma2_9b, qwen2_72b, starcoder2_7b
+from repro_torch.configs.registry import ARCHS, PENDING, get_arch
 from repro_torch.core.device import resolve_device
 from repro_torch.models import transformer as T
 
 __all__ = ["LM_ARCHS", "serve_demo", "main"]
 
-# the dense LMs; mixtral-8x22b and dbrx-132b wait for the MoE FFN (ROADMAP A13b)
-LM_ARCHS = {m.ARCH_ID: m for m in (gemma2_9b, qwen2_72b, starcoder2_7b)}
+# the ported LMs in the registry; mixtral-8x22b and dbrx-132b wait for the MoE FFN (A13b)
+LM_ARCHS = {k: m for k, m in ARCHS.items() if m.FAMILY == "lm"}
 
 
 def serve_demo(arch_id: str, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
@@ -38,9 +38,10 @@ def serve_demo(arch_id: str, *, batch: int, prompt_len: int, gen: int, seed: int
     step, the card synchronised after it}; the reference returns the
     generated tokens alone."""
     if arch_id not in LM_ARCHS:
-        raise SystemExit(f"{arch_id} is not a ported LM; serve supports {sorted(LM_ARCHS)}")
+        why = f" (ROADMAP {PENDING[arch_id]})" if arch_id in PENDING else ""
+        raise SystemExit(f"{arch_id} is not a ported LM{why}; serve supports {sorted(LM_ARCHS)}")
     device = resolve_device(device)
-    cfg = cfg or LM_ARCHS[arch_id].smoke_config()
+    cfg = cfg or get_arch(arch_id).smoke_config()
     gen_ = torch.Generator(device=device).manual_seed(seed)
     if params is None:
         params = T.init_params(gen_, cfg, device=device)

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.device import resolve_device
 from repro_torch.graph.segment_ops import gather_scatter, segment_softmax, segment_sum
-from repro_torch.kernels.seg_mm.ref import gather_ids
+from repro_torch.kernels.seg_mm.ref import gather_rows
 from repro_torch.models.gcn import node_nll
 from repro_torch.models.gnn_common import GraphBatch, params_from_numpy
 from repro_torch.nn.layers import init_linear, linear
@@ -83,22 +83,23 @@ def _gat_from_reference(params: Dict, cfg: GATConfig, device) -> Dict:
 def gat_forward(params: Dict, batch: GraphBatch, cfg: GATConfig) -> torch.Tensor:
     x = batch.x.to(cfg.dtype)
     n = batch.n_nodes
-    # ids outside [0, n) read the rows the reference's gathers read
-    src, dst = gather_ids(batch.edge_src, n), gather_ids(batch.edge_dst, n)
+    # ids outside [0, n) read the rows the reference's gathers read, and pass a
+    # gradient back only from [-n, n) (gather_rows)
+    src, dst = batch.edge_src, batch.edge_dst
     _, dims_out, heads = _gat_shapes(cfg)
     emask = batch.edge_mask[:, None]
     for i, lp in enumerate(params["layers"]):
         h = linear(lp["w"], x).reshape(n, heads[i], dims_out[i])  # (N, H, D)
         # SDDMM: per-edge attention logits from endpoint projections
-        e_src = torch.einsum("nhd,hd->nh", h, lp["a_src"])[src]  # (E, H)
-        e_dst = torch.einsum("nhd,hd->nh", h, lp["a_dst"])[dst]
+        e_src = gather_rows(torch.einsum("nhd,hd->nh", h, lp["a_src"]), src)  # (E, H)
+        e_dst = gather_rows(torch.einsum("nhd,hd->nh", h, lp["a_dst"]), dst)
         logits = F.leaky_relu(e_src + e_dst, cfg.negative_slope)
         logits = torch.where(emask, logits, torch.full_like(logits, -1e30))
         # segment softmax per destination, per head
         alpha = segment_softmax(logits, batch.edge_dst, n)
         alpha = alpha * emask.to(alpha.dtype)
         # SpMM: attention-weighted aggregation
-        msgs = h[src] * alpha[:, :, None]
+        msgs = gather_rows(h, src) * alpha[:, :, None]
         agg = segment_sum(msgs, batch.edge_dst, n)  # (N, H, D)
         x = agg.reshape(n, heads[i] * dims_out[i])
         if i < cfg.n_layers - 1:

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.kernels.seg_mm.ref import gather_rows
 from repro_torch.nn.attention import attention
 from repro_torch.nn.layers import label_logits, linear, mlp, rmsnorm, rope, softcap
 
@@ -243,13 +244,11 @@ def _layer(params: Dict, i: int, g: int) -> Dict:
 # ----------------------------------------------------------------------- forward
 def _embed(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
     """``params["embed"][tokens]`` with the reference's index semantics
-    (wrap in [-V, -1], clamp elsewhere), cast to ``cfg.dtype`` and scaled
+    (wrap in [-V, -1], clamp elsewhere; a gradient reaches the table only
+    from ids in [-V, V), ``gather_rows``), cast to ``cfg.dtype`` and scaled
     by sqrt(d) where the config says so."""
-    table = params["embed"]
-    v = table.shape[0]
-    idx = tokens.to(torch.int64)
-    idx = torch.where(idx < 0, idx + v, idx).clamp_(0, v - 1)
-    x = table[idx].to(cfg.dtype)
+    b, s = tokens.shape
+    x = gather_rows(params["embed"], tokens.reshape(-1)).reshape(b, s, -1).to(cfg.dtype)
     if cfg.scale_embed:
         x = x * math.sqrt(cfg.d_model)
     return x
