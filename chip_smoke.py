@@ -120,7 +120,10 @@ none of whose failures is caught:
    when a launch is shorter than the host's call); B1 and B2 also with
    every row selected; flash_attention also beside the mma.sync kernel it
    replaced on the path; B5ᵀ at 3j (a)'s backward shapes and B4's backward
-   at 3j (b)'s, beside cuSPARSE and ``F.embedding_bag``'s backward;
+   at 3j (b)'s, beside cuSPARSE and ``F.embedding_bag``'s backward; B6's
+   backward at train_4k's layer and at prefill_8k's local and global
+   layers, beside SDPA's backward (no softcap: not the same function),
+   timed right after phase 2 while the process is young (``on_card``);
 3h. last, after phase 5 (see ``run``), the service and wire layer over the
    same graph (``service_phase``):
    8 closed-loop client threads send 256 requests (zipf 1.1 over phase 3's
@@ -161,11 +164,27 @@ none of whose failures is caught:
    ``train_batch`` steps, step 0's loss and gradients against the CPU port
    fed only the rows the batch names, every other row's gradient exactly 0,
    bitwise across two calls, a sparse rowwise update against the dense
-   one, 3 dense AdamW steps; (c, d) after 3i, ``python -m
+   one, 3 dense AdamW steps; (c) after 3i, ``python -m
    repro_torch.launch.train`` for GCN and DLRM as subprocesses, each
-   printing ``done``, and B6 refusing a gradient.  Phase 2 holds B5ᵀ and
-   B4's backward to the plain backward; phase 5 times both, B5ᵀ at (a)'s
-   backward shapes and at the population request's.
+   printing ``done``.  Phase 2 holds B5ᵀ and B4's backward to the plain
+   backward; phase 5 times both, B5ᵀ at (a)'s backward shapes and at the
+   population request's;
+3k. LM training after 3j (b) (``train_lm_phase``): ``gemma2_9b``'s
+   published widths (d 3,584, 16 query and 8 KV heads of 256, d_ff 14,336,
+   vocab 256,000, softcaps 50 and 30) at ``train_4k``'s 4,096 tokens;
+   (i) two layers (local, global) in f32 at ``LM_CHECK_SEQ`` tokens, step
+   0's loss and every gradient with B6 forward and backward within
+   ``LM_GRAD_TOL`` of the same under the plain chunked attention on the
+   card; (ii) ``LM_TRAIN_LAYERS`` bf16 layers (``reduced``: 8 of 42, batch
+   1 of 256), AdamW with f32 moments, with ``remat`` on and off: step 0's
+   loss and gradients bitwise equal under both, ``LM_TRAIN_STEPS`` steps
+   on one batch timed (batch, forward, backward, update) whose loss must
+   fall, each run's peak memory; (iii) ``examples/train_lm_torch.py`` as a
+   subprocess (a failure mid-run, the restart bitwise the unbroken run,
+   ``OK``); (iv) after 3i, the training CLI for ``gemma2-9b`` beside 3j
+   (c)'s.  Phase 2 holds B6's backward to the plain backward over ragged
+   shapes (``B6_BWD_CASES``), bitwise run to run, and the forward's
+   log-sum-exp to the plain one.
 
 Kernel launch counts are zeroed right before each path and read right
 after it; a kernel of the path that did not launch fails the run.  The
@@ -204,6 +223,7 @@ SOURCES = {  # kernel family -> its CUDA source
     "embedding_bag": "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
     "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "flash_attention_sm90": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu",
+    "flash_attention_bwd": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
 }
 FANOUTS = [15, 10]  # GraphSAGE 15-10
 CHECK_ROWS = 4096  # rows of a sampled layer held to the Python-loop oracle
@@ -224,6 +244,11 @@ BAG_TOL = 1e-5  # card vs CPU context bags (a masked mean summed in another orde
 BF16_FLOP_PER_S = 989e12  # H100 SXM published dense bf16 tensor-core rate
 F32_FLOP_PER_S = 67e12  # H100 SXM published f32 rate outside the tensor cores
 B6_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the reference's flash tolerances (rtol = atol)
+# B6's backward against the plain backward (f32 inputs: in float64; bf16: in f32 from the
+# bf16 inputs), rtol and atol times the largest |gradient| of the tensor: f32 sums of up
+# to Sq·G terms in another order, P as exp(s - lse); bf16 P and dS rounded to bf16 before
+# their products (a relative 2^-9 each) and the gradients written in bf16
+B6_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # analytics (phase 3f): 1,024 seeds from --seed, k = 3; the edge filter keeps 25 of the 50
 # relationships (about half the edges), the vertex filter 25 of the 50 labels
 ANALYTICS_SEEDS, ANALYTICS_K = 1024, 3
@@ -282,6 +307,19 @@ TRAIN_TOL = 1e-4  # card vs CPU loss and gradients (atol = rtol): cuBLAS and CPU
 SPARSE_LR = 0.01  # sparse_table_update's default
 SPARSE_UPDATE_TOL = 1e-6  # sparse vs dense row updates: duplicates summed in other orders
 TRAIN_CLI_TIMEOUT = 300  # seconds for each training CLI run as a subprocess
+# LM training (phase 3k): gemma2-9b at its published widths, LM_SHAPES["train_4k"]'s
+# 4,096 tokens, cut to LM_TRAIN_LAYERS of 42 layers (4 local/global pairs) and batch 1 of
+# 256; bf16 weights, AdamW with f32 moments (lr 3e-4 from step 0) on one fixed batch
+LM_TRAIN_LAYERS, LM_TRAIN_STEPS = 8, 4
+LM_TRAIN_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=10_000)
+# step-0 loss and gradients of two full-width f32 layers at LM_CHECK_SEQ tokens, B6 forward
+# and backward against the plain chunked attention, both on the card: rtol, and atol times
+# each leaf's largest |gradient| (f32 sums in other orders: B6's dot products and
+# exp(s - lse) against the chunked path's online softmax)
+LM_GRAD_TOL = 1e-4
+# examples/train_lm_torch.py: lm100m, a failure at step 31 (a restart from the checkpoint
+# at 20), the restart bitwise the unbroken run, the loss improving over the 60 steps
+LM_EXAMPLE_ARGS = ("--steps", "60", "--ckpt-every", "20", "--check-restart")
 
 
 def check(cond: bool, what: str) -> None:
@@ -369,24 +407,33 @@ def time_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def on_card(fn, sessions: int = 3):
+PROFILER_SESSIONS_MAX = 8  # sessions on_card takes at most while ``want`` goes unrecorded
+
+
+def on_card(fn, sessions: int = 3, want: str | None = None):
     """``fn()`` under ``torch.profiler``: the events that ran on the card
     (kernels and copies), most time first, and the window's wall seconds.
     Only device-side events are kept: a host op's device time repeats its
     kernels'.  The profiler on the card's host loses device records, more
     often the older the process (``tools/profiler_session_probe.py``: from
     about 200 s, sessions of one DLRM forward alternate between all and
-    part or none of its kernels), but never adds any.  So ``fn`` runs under
-    a second session and, unless the two recorded the same nonzero number of
-    device events, a third; the session with the most is returned and the
-    caller's checks judge it.  Sessions that disagree are reported on
-    stderr."""
+    part or none of its kernels; late in a run three sessions in a row have
+    recorded nothing), but never adds any.  So ``fn`` runs under a second
+    session and, unless the two recorded the same nonzero number of device
+    events, a third; where ``want`` names a kernel, further sessions (up to
+    ``PROFILER_SESSIONS_MAX``) follow until one records it.  The fullest
+    session (of those that recorded ``want``, where any did) is returned
+    and the caller's checks judge it.  Sessions that disagree are reported
+    on stderr."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def has_want(events):
+        return want is None or any(want in e.key for e in events)
+
     recorded = []
-    for session in range(1, sessions + 1):
+    for session in range(1, PROFILER_SESSIONS_MAX + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -396,17 +443,19 @@ def on_card(fn, sessions: int = 3):
         events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                         key=lambda e: e.self_device_time_total, reverse=True)
         recorded.append((sum(e.count for e in events), events, wall_s))
-        if session >= 2 and recorded[-1][0] == recorded[-2][0] > 0:
+        agreed = session >= 2 and recorded[-1][0] == recorded[-2][0] > 0
+        if any(has_want(ev) for _, ev, _ in recorded) and (agreed or session >= sessions):
             break
     counts = [n for n, _, _ in recorded]
-    if len(set(counts)) > 1:
+    if len(set(counts)) > 1 or len(recorded) > sessions:
         print(f"on_card: profiler sessions recorded {counts} device events; the fullest is kept",
               file=sys.stderr, flush=True)
-    _, events, wall_s = max(recorded, key=lambda r: r[0])
+    _, events, wall_s = max(recorded, key=lambda r: (has_want(r[1]), r[0]))
     return events, wall_s
 
 
 L2_FLUSH_BYTES = 256 * 2**20  # five times the H100's 50 MB L2
+DEVICE_MS_BY_EVENTS: list = []  # kernels whose device_ms no profiler session recorded
 
 
 def kernel_device_ms(fn, name: str, reps: int = 20, cold_l2: bool = False) -> dict:
@@ -416,22 +465,46 @@ def kernel_device_ms(fn, name: str, reps: int = 20, cold_l2: bool = False) -> di
     the host's time between launches that ``time_ms`` sees when a launch is
     shorter than the host's call.  With ``cold_l2`` every call follows a
     write of ``L2_FLUSH_BYTES`` (its fill kernel is not counted), so the
-    inputs come from HBM, not from what the last call left in L2."""
+    inputs come from HBM, not from what the last call left in L2.  Where
+    several kernels' names hold ``name`` (a call launches each), ``ms`` is
+    the sum of their means and ``by_kernel`` each one's mean.  Where no
+    session of ``on_card`` recorded ``name``, ``ms`` is the mean of ``reps``
+    calls, each between two CUDA events (``"from": "cuda_events"``: the
+    call's whole time on the stream, at least the kernels' own)."""
     import torch
 
     fn()
-    if cold_l2:
-        flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.int8, device="cuda")
-        events, _ = on_card(lambda: [(flush.zero_(), fn()) for _ in range(reps)])
-        del flush
-    else:
-        events, _ = on_card(lambda: [fn() for _ in range(reps)])
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.int8, device="cuda") if cold_l2 else None
+
+    def call(events=None):
+        if flush is not None:
+            flush.zero_()
+        if events:
+            events[0].record()
+        fn()
+        if events:
+            events[1].record()
+
+    events, _ = on_card(lambda: [call() for _ in range(reps)], want=name)
     hits = [e for e in events if name in e.key]
     recorded = sum(e.count for e in hits)
-    check(recorded > 0, f"the profiler recorded launches of {name} "
-                        f"(the session recorded {len(events)} device events)")
-    return {"ms": sum(e.self_device_time_total for e in hits) / 1e3 / recorded,
-            "recorded": recorded, "calls": reps}
+    if not recorded:
+        print(f"kernel_device_ms: no profiler session recorded {name}; timed by CUDA events",
+              file=sys.stderr, flush=True)
+        DEVICE_MS_BY_EVENTS.append(name)
+        ms = []
+        for _ in range(reps):
+            pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            call(pair)
+            torch.cuda.synchronize()
+            ms.append(pair[0].elapsed_time(pair[1]))
+        return {"ms": statistics.mean(ms), "recorded": 0, "calls": reps, "from": "cuda_events"}
+    out = {"ms": sum(e.self_device_time_total for e in hits) / 1e3 / recorded,
+           "recorded": recorded, "calls": reps, "from": "profiler"}
+    if len(hits) > 1:
+        out["by_kernel"] = {e.key[:80]: e.self_device_time_total / 1e3 / e.count for e in hits}
+        out["ms"] = sum(out["by_kernel"].values())
+    return out
 
 
 B1_KERNEL, B2_KERNEL = "bitmap_query_packed_kernel", "bitmap_query_byte_kernel"
@@ -568,6 +641,7 @@ def kernel_checks(device) -> dict:
     seg_mm_checks(device)
     train_backward_checks(device)
     shares = flash_attention_checks(device)
+    shares.update(flash_attention_bwd_checks(device))
     torch.cuda.synchronize()
     return shares
 
@@ -815,6 +889,120 @@ def flash_attention_case(q, k, v, kw: dict, scale: float, shares: dict, expect: 
         uncapped = ops.flash_attention(q, k, v, **{**kw, "cap": None})
         check(not attention_within(uncapped, want), f"{what}: cap=None fails the check")
     ops.reset_launches()
+
+
+def grads_within(got, want, tol: float):
+    """(within, share): ``got`` within rtol ``tol`` and atol ``tol`` times
+    the largest |want| (``want`` in a wider type), and the largest share of
+    that limit used."""
+    import torch
+
+    got, want = got.double(), want.double()
+    limit = tol * (want.abs() + float(want.abs().max()) + 1e-30)
+    share = float(((got - want).abs() / limit).max()) if got.numel() else 0.0
+    return bool(torch.isfinite(got).all()) and share <= 1.0, share
+
+
+# B6's backward (phase 2): (b, sq, skv, hq, hkv, d), qk scale, dtypes, kwargs.  Ragged Sq ≠
+# Skv, G = 1, 2, 8, D = 16, 64, 128, 256, causal on and off, window on and off, softcap on
+# and off (at QK_SCALE the scores reach it), q_offset ≠ 0 (rows with no valid key at
+# q_offset < 0 and past the window); train_4k's layer (whose 4,096 window masks nothing
+# at 4,096 tokens) and prefill_8k's local layer (where it does), bf16: the LM's path.
+# Last, bf16 inputs TMA refuses (D = 20; q, k, v views of rows PAD elements wider), which
+# the mma forward takes: the backward recomputes S as that kernel did
+B6_BWD_CASES = [
+    ((1, 4096, 4096, 16, 8, 256), 0.3, ("bfloat16",), dict(causal=True, window=4096, cap=50.0)),
+    ((1, 8192, 8192, 16, 8, 256), 0.3, ("bfloat16",), dict(causal=True, window=4096, cap=50.0)),
+    ((1, 1000, 1000, 16, 8, 256), QK_SCALE, ("bfloat16", "float32"), dict(causal=True, cap=50.0)),
+    ((1, 333, 200, 8, 1, 128), 0.3, ("bfloat16", "float32"), dict(causal=False, window=70,
+                                                                  cap=30.0)),
+    ((2, 130, 250, 4, 2, 64), 1.0, ("bfloat16", "float32"), dict(causal=True, window=50,
+                                                                 q_offset=120)),
+    ((1, 77, 131, 4, 4, 16), 1.0, ("bfloat16", "float32"), dict(causal=False)),
+    ((1, 150, 150, 16, 2, 128), 1.0, ("bfloat16", "float32"), dict(causal=True, q_offset=-30)),
+    ((1, 200, 300, 4, 2, 256), 1.0, ("bfloat16", "float32"), dict(causal=True, window=64,
+                                                                  cap=50.0, q_offset=-10)),
+    ((1, 64, 100, 2, 1, 16), 1.0, ("bfloat16", "float32"), dict(causal=False, window=8,
+                                                                q_offset=100)),
+    ((1, 90, 150, 4, 2, 20), 1.0, ("bfloat16",), dict(causal=True, cap=30.0, q_offset=-7)),
+    ((2, 200, 170, 8, 2, 64), 0.3, ("bfloat16",), dict(causal=True, window=50, cap=50.0,
+                                                       pad=4)),
+    ((1, 130, 130, 8, 4, 256), 0.3, ("bfloat16",), dict(causal=True, window=40, cap=50.0,
+                                                        pad=4)),
+]
+
+
+def flash_attention_bwd_checks(device) -> dict:
+    """Phase 2: B6's backward (``flash_attention_bwd.cu``, through the
+    autograd Function of ``ops.flash_attention``) against the plain backward
+    ``ref.flash_attention_bwd_ref`` fed the plain forward's output and
+    log-sum-exp, on ``B6_BWD_CASES``, within ``B6_GRAD_TOL``; bitwise from
+    run to run; the forward's log-sum-exp against the plain one (rows with
+    no valid key exactly -1e30).  A case's ``pad`` makes q, k and v views
+    of rows that many elements wider, which TMA refuses.  Returns each
+    case's share of the tolerance."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    shares = {}
+    for (b, sq, skv, hq, hkv, d), scale, dtypes, case_kw in B6_BWD_CASES:
+        kw = {k_: w for k_, w in case_kw.items() if k_ != "pad"}
+        wide_d = d + case_kw.get("pad", 0)
+        q0 = torch.randn((b, sq, hq, wide_d), generator=gen, device=device) * scale
+        k0 = torch.randn((b, skv, hkv, wide_d), generator=gen, device=device) * scale
+        v0 = torch.randn((b, skv, hkv, wide_d), generator=gen, device=device)
+        do0 = torch.randn((b, sq, hq, d), generator=gen, device=device)
+        for name in dtypes:
+            dtype = getattr(torch, name)
+            q, k, v = (t.to(dtype)[..., :d] for t in (q0, k0, v0))
+            do = do0.to(dtype)
+            what = f"B6 backward {(b, sq, skv, hq, hkv, d)} {name} qk x{scale} {case_kw}"
+            forward = kernel.variant(q, k, v)
+            check(forward == ("simt" if dtype == torch.float32 else
+                              "mma" if wide_d != d or d % 8 else "sm90"),
+                  f"{what}: the forward kernel is {forward}")
+            runs = []
+            for _ in range(2):
+                ts = [t.to(dtype).clone()[..., :d].requires_grad_(True) for t in (q0, k0, v0)]
+                check(kernel.variant(*ts) == forward, f"{what}: the copies take {forward}")
+                ops.reset_launches()
+                runs.append(list(torch.autograd.grad(ops.flash_attention(*ts, **kw), ts, do)))
+                which = kernel.bwd_variant(q)
+                check(ops.launches[ops.FLASH_ATTENTION_BWD] == ops.launches[
+                    ops.BWD_COUNTERS[which]] == 1 and ops.launches[ops.COUNTERS[forward]] == 1,
+                      f"{what}: one launch of {forward} and one of {which}")
+                del ts
+            check(all(a.dtype == dtype and a.equal(b_) for a, b_ in zip(*runs)),
+                  f"{what}: bitwise run to run")
+            wide = torch.float64 if dtype == torch.float32 else torch.float32
+            qw, kw_, vw = (t.to(wide) for t in (q, k, v))
+            o, lse = ref.flash_attention_ref(qw, kw_, vw, return_lse=True, **kw)
+            want = ref.flash_attention_bwd_ref(qw, kw_, vw, o, lse, do.to(wide), **kw)
+            del qw, kw_, vw, o
+            share = 0.0
+            for g, w, part in zip(runs[0], want, ("dq", "dk", "dv")):
+                ok, sh = grads_within(g, w, B6_GRAD_TOL[name])
+                check(ok, f"{what}: {part} within {B6_GRAD_TOL[name]} (share {sh:.3g})")
+                share = max(share, sh)
+            # the forward's log-sum-exp, as the backward reads it
+            got_lse = torch.empty(lse.shape, dtype=torch.float32, device=device)
+            kernel.launch_flash_attention(q, k, v, torch.empty(q.shape, dtype=dtype,
+                                                               device=device), variant=forward,
+                                          lse=got_lse, **{**dict(window=None, cap=None,
+                                                                 q_offset=0), **kw})
+            none = lse <= ref.NEG_INF / 2
+            check(bool((got_lse[none] == ref.NEG_INF).all()), f"{what}: lse -1e30 where no key")
+            lse_err, lse_max = 0.0, 0.0
+            if bool((~none).any()):
+                lse_err = float((got_lse[~none].double() - lse[~none].double()).abs().max())
+                lse_max = float(lse[~none].abs().max())
+            check(lse_err <= 1e-4 * (1 + lse_max), f"{what}: lse within 1e-4 (err {lse_err})")
+            shares[what] = {"kernel": share, "lse_max_abs_err": lse_err}
+            del runs, want, lse, got_lse
+    ops.reset_launches()
+    return shares
 
 
 def sums_close(got, want, scale) -> bool:
@@ -2251,7 +2439,7 @@ def forward_kernels(forward, what: str, kernel: str, banned: str) -> dict:
         with torch.inference_mode():
             forward()
 
-    events, _ = on_card(run)
+    events, _ = on_card(run, want=kernel)
     names = sorted(e.key for e in events)
     check(any(kernel in k for k in names),
           f"the {what} ran {kernel} (the session recorded {len(names)} device events)")
@@ -2962,13 +3150,14 @@ def train_dlrm_phase(params, cfg, seed: int, device: str, sync) -> dict:
 
 
 def train_cli_phase(device: str) -> dict:
-    """Phase 3j (c): ``python -m repro_torch.launch.train`` for GCN and DLRM
-    (12 steps, checkpoints every 4, a failure at 6) as subprocesses on
-    ``device``; each must exit 0 and print ``done``."""
+    """Phase 3j (c) and 3k (iv): ``python -m repro_torch.launch.train`` for
+    GCN, DLRM and Gemma-2 (smoke configs; 12 steps, checkpoints every 4, a
+    failure at 6) as subprocesses on ``device``; each must exit 0 and print
+    ``done``."""
     out = {}
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src") + os.pathsep
            + os.environ.get("PYTHONPATH", "")}
-    for arch in ("gcn-cora", "dlrm-rm2"):
+    for arch in ("gcn-cora", "dlrm-rm2", "gemma2-9b"):
         ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
         t0 = time.perf_counter()
         try:
@@ -2987,20 +3176,177 @@ def train_cli_phase(device: str) -> dict:
     return out
 
 
-def b6_refuses_grad(device: str) -> str:
-    """Phase 3j (d): B6 on CUDA tensors that require a gradient raises
-    ``NotImplementedError`` (its backward is ROADMAP A15b)."""
+def train_lm_phase(seed: int, device: str, sync) -> dict:
+    """Phase 3k (module docstring): Gemma-2-9B training at its published
+    widths on the card (on the CPU, a rehearsal: the smoke config at short
+    lengths).  (i) two layers in f32 at ``LM_CHECK_SEQ`` tokens: step 0's
+    loss and every gradient with B6 forward and backward against the same
+    under ``plain_attention("chunked")``; (ii) ``LM_TRAIN_LAYERS`` layers in
+    bf16 at train_4k's 4,096 tokens, with ``remat`` on and off: step 0's
+    loss and gradients equal bit for bit under both, then
+    ``LM_TRAIN_STEPS`` AdamW steps on one batch (split batch, forward,
+    backward, update), whose loss must fall, and each run's peak memory;
+    (iii) ``examples/train_lm_torch.py`` as a subprocess (a failure mid-run,
+    the restart bitwise the unbroken run, ``OK``).  Returns the results and
+    the B6 launches of (ii), the training path, by kernel (the forward's by
+    layer kind); (i)'s launches, made to compare B6 with the plain path, are
+    kept apart under ``grad_check``."""
     import torch
 
+    from repro_torch.configs import gemma2_9b
+    from repro_torch.configs.common import LM_SHAPES
+    from repro_torch.data import lm_batch
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, init_state
 
-    q = torch.randn((1, 128, 4, 64), dtype=torch.bfloat16, device=device, requires_grad=True)
-    k = torch.randn((1, 128, 2, 64), dtype=torch.bfloat16, device=device)
-    try:
-        ops.flash_attention(q, k, k)
-    except NotImplementedError as e:
-        return str(e)
-    check(False, "3j: B6 refuses a gradient on the card")
+    t_phase = time.perf_counter()
+    full = device == "cuda"
+    train_4k = LM_SHAPES["train_4k"]
+    base = (gemma2_9b.full_config() if full else
+            dataclasses.replace(gemma2_9b.smoke_config(), dtype=torch.bfloat16,
+                                attn_impl="auto"))
+    out = {"config": base.name, "seq": train_4k["seq_len"] if full else 48,
+           "reduced": {"n_layers": f"{base.n_layers} -> {LM_TRAIN_LAYERS}",
+                       "batch": f"{train_4k['global_batch']} -> 1"}}
+    kernels = {**ops.COUNTERS, **ops.BWD_COUNTERS}
+    launches = {"sm90": {"local": 0, "global": 0}, "bwd_mma": 0}  # (ii)'s, the training path
+
+    def launched():  # B6 launches by kernel since the last call
+        n = {name: ops.launches[counter] for name, counter in kernels.items()}
+        ops.reset_launches()
+        return n
+
+    def only(n, **want):  # exactly these kernels launched, these many times
+        return n == {name: want.get(name, 0) for name in kernels}
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30 if full else None
+
+    def fresh_peak():
+        if full:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    # (i) two full-width layers in f32 past the window: B6 against the plain chunked path
+    cfg2 = dataclasses.replace(base, n_layers=2, dtype=torch.float32)
+    seq2 = LM_CHECK_SEQ if full else 40
+    fresh_peak()
+    p2 = T.init_params(torch.Generator(device=device).manual_seed(seed + 12), cfg2,
+                       device=device)
+    b2 = lm_batch(0, batch=1, seq=seq2, vocab=cfg2.vocab, seed=seed + 12, device=device)
+
+    def loss2(p, b):
+        return T.loss_fn(p, b["tokens"], b["labels"], cfg2)
+
+    ops.reset_launches()
+    got_l, got = grads_of(loss2, p2, b2)
+    n_check = launched()
+    with plain_attention("chunked"):
+        want_l, want = grads_of(loss2, p2, b2)
+    check(only(launched()), "3k (i): the plain attention path launches no B6")
+    if full:  # remat: each layer's forward twice (the recompute), its backward once
+        check(only(n_check, simt=2 * cfg2.n_layers, bwd_simt=cfg2.n_layers),
+              f"3k (i): B6 launched {n_check} for 2 f32 layers")
+    check(bool(torch.isclose(got_l, want_l, rtol=LM_GRAD_TOL, atol=0)),
+          f"3k (i): step-0 loss {float(got_l)} against the plain path's {float(want_l)}")
+    shares = {}
+    for name, w in want.items():
+        ok, shares[name] = grads_within(got[name], w, LM_GRAD_TOL)
+        check(ok, f"3k (i): gradient {name} within {LM_GRAD_TOL} of the plain path's "
+                  f"(share {shares[name]:.3g})")
+    worst = max(shares, key=shares.get)
+    out["grad_check"] = {"seq": seq2, "n_layers": 2, "dtype": "float32",
+                         "loss": float(got_l), "loss_plain": float(want_l),
+                         "largest_share": shares[worst], "largest_share_leaf": worst,
+                         "b6_launches": n_check, "peak_gib": peak_gib()}
+    del p2, b2, got, want
+
+    # (ii) LM_TRAIN_LAYERS bf16 layers at train_4k's length, remat on and off
+    cfg8 = dataclasses.replace(base, n_layers=LM_TRAIN_LAYERS)
+
+    def book(n, by_layer, remat, passes, what):  # (ii)'s launches onto the training path's
+        if full:  # remat: each layer's forward twice (the recompute), its backward once
+            fwd, bwd = (2 if remat else 1) * cfg8.n_layers * passes, cfg8.n_layers * passes
+            check(only(n, sm90=fwd, bwd_mma=bwd) and sum(by_layer.values()) == fwd,
+                  f"3k (ii) remat={remat}, {what}: B6 launched {n} (calls by layer "
+                  f"{dict(by_layer)}); want {fwd} sm90 and {bwd} bwd_mma")
+        for kind, calls in by_layer.items():
+            launches["sm90"][kind] += calls
+        launches["bwd_mma"] += n["bwd_mma"]
+
+    batch = lm_batch(0, batch=1, seq=out["seq"], vocab=cfg8.vocab, seed=seed + 13,
+                     device=device)
+    runs, first = {}, None
+    for remat in (True, False):
+        cfg = dataclasses.replace(cfg8, remat=remat)
+
+        def loss(p, b, cfg=cfg):
+            return T.loss_fn(p, b["tokens"], b["labels"], cfg)
+
+        fresh_peak()
+        params = T.init_params(torch.Generator(device=device).manual_seed(seed + 13), cfg,
+                               device=device)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with counting_flash() as (_, by_layer):
+            l0, g0 = grads_of(loss, params, batch)
+            sync()
+        grad_ms = (time.perf_counter() - t0) * 1e3
+        n = launched()
+        book(n, by_layer, remat, 1, "step 0's gradient")
+        run = {"grad_ms": grad_ms, "grad_peak_gib": peak_gib(), "b6_launches": n,
+               "b6_launches_by_layer": dict(by_layer), "loss0": float(l0)}
+        if first is None:
+            first = (l0, g0)
+        else:
+            check(bool(l0.equal(first[0])) and all(g0[k].equal(first[1][k]) for k in g0),
+                  "3k (ii): step 0's loss and gradients equal bit for bit with remat on and off")
+            first = None
+        del g0
+        step_fn = make_train_step(loss, lambda step: batch, AdamWConfig(**LM_TRAIN_OPT),
+                                  sync=sync)
+        state = (params, init_state(params))
+        del params
+        logs = []
+        with counting_flash() as (_, by_layer):
+            for step in range(LM_TRAIN_STEPS):
+                state, m = step_fn(state, step)
+                logs.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                             **m.get("ms", {})})
+        del state
+        n = launched()
+        book(n, by_layer, remat, LM_TRAIN_STEPS, "the steps")
+        check(all(np.isfinite(x["loss"]) for x in logs) and logs[-1]["loss"] < logs[0]["loss"],
+              f"3k (ii) remat={remat}: the loss falls on a fixed batch: "
+              f"{[x['loss'] for x in logs]}")
+        run.update({"steps": logs, "peak_gib": peak_gib(), "step_b6_launches": n,
+                    "step_b6_launches_by_layer": dict(by_layer)})
+        if full:
+            run["step_ms"] = {k: statistics.median(x[k] for x in logs[1:])
+                              for k in ("batch", "forward", "backward", "update")}
+        runs["remat" if remat else "no_remat"] = run
+    out["steps"] = runs
+    fresh_peak()
+
+    # (iii) the example: a failure mid-run, the restart bitwise the unbroken run
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src") + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    args = LM_EXAMPLE_ARGS if full else ("--steps", "3", "--ckpt-every", "2", "--check-restart")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "examples" / "train_lm_torch.py"), *args,
+                           "--device", device], capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=TRAIN_CLI_TIMEOUT)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines and lines[-1] == "OK"
+          and any(x.startswith("restart: bitwise") for x in lines),
+          f"3k (iii) examples/train_lm_torch.py exits 0 with a bitwise restart and 'OK': rc "
+          f"{proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    out["example"] = {"s": time.perf_counter() - t0, "args": list(args), "lines": lines[-5:]}
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
 
 
 def train_backward_checks(device) -> None:
@@ -3424,6 +3770,7 @@ def flash_attention_entry(name: str, call, launches: int) -> dict:
              "ms": time_ms(lambda: ops.flash_attention(q, k, v, **kw), 10),
              "device_ms": kernel_device_ms(lambda: ops.flash_attention(q, k, v, **kw),
                                            f"flash_attention_{which}_kernel", 10)["ms"],
+             "ms_with_lse": time_ms(lambda: ops._forward(q, k, v, kw, want_lse=True), 10),
              "ms_mma_sync_kernel": time_ms(mma_sync, 10), "mma_sync_kernel_max_abs_err": err_mma,
              "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 2),
              "bound_ms": max(flops / rate, moved_bytes / HBM_BYTES_PER_S) * 1e3,
@@ -3439,6 +3786,133 @@ def flash_attention_entry(name: str, call, launches: int) -> dict:
                        "pairs": pairs, "flop": flops}}
     entry["tflop_per_s"] = flops / entry["ms"] / 1e9
     entry["tflop_per_s_mma_sync_kernel"] = flops / entry["ms_mma_sync_kernel"] / 1e9
+    return entry
+
+
+def flash_attention_bwd_entries(device) -> list:
+    """Phase 5's lines for B6's backward at the LM's layer shapes, on seeded
+    bf16 inputs (the work depends on shapes and masks alone): q (1, 8192,
+    16, 256), k and v (1, 8192, 8, 256) as prefill_8k's layers (q and k
+    entries of std 0.3, v of std 1); train_4k's layer is their first 4,096
+    tokens (there the 4,096 window masks nothing), then prefill_8k's local
+    (window 4,096) and global layers, cap 50."""
+    import torch
+
+    from repro_torch.configs.common import LM_SHAPES
+
+    gen = torch.Generator(device=device).manual_seed(19)
+    b, s, hq, hkv, d = LM_REQUESTS["prefill_8k"][0], LM_REQUESTS["prefill_8k"][1], 16, 8, 256
+    q = (torch.randn((b, s, hq, d), generator=gen, device=device) * 0.3).to(torch.bfloat16)
+    k = (torch.randn((b, s, hkv, d), generator=gen, device=device) * 0.3).to(torch.bfloat16)
+    v = torch.randn((b, s, hkv, d), generator=gen, device=device).to(torch.bfloat16)
+    local = dict(causal=True, window=4096, cap=50.0, q_offset=0)
+    n = LM_SHAPES["train_4k"]["seq_len"]
+    calls = (("train_4k layer", (q[:, :n], k[:, :n], v[:, :n], local)),
+             ("prefill_8k local layer", (q, k, v, local)),
+             ("prefill_8k global layer", (q, k, v, {**local, "window": None})))
+    return [flash_attention_bwd_entry(f"flash_attention backward (B6) {what}", call)
+            for what, call in calls]
+
+
+def flash_attention_bwd_entry(name: str, call) -> dict:
+    """Phase 5's line for B6's backward (``flash_attention_bwd.cu``: Dᵢ,
+    dK/dV and dQ, one launch call) at a call's (q, k, v, keywords) with a
+    random bf16 cotangent, from the forward's output and log-sum-exp; its
+    ``launches`` are set where the training path's are read.  ``device_ms``
+    sums the three kernels' own time a call (``by_kernel`` each).  The
+    bound counts what these masks keep: five products (S, dP, dV, dK, dQ)
+    of 2·D FLOP per kept (q, k) pair and query head at the dense bf16
+    rate, against q, k, v, o, dO read once and dq, dk, dv written once.  The plain version (``ref.flash_attention_bwd_ref``,
+    f32) runs one KV head's group at a time: all heads' (Sq, Skv) f32
+    intermediates at 8,192 tokens would take ~35 GB.  The yardstick is
+    ``scaled_dot_product_attention``'s backward with GQA and a boolean mask
+    of the same causal window (``library_ms``) and, where the window masks
+    nothing, with ``is_causal=True`` (``library_causal_ms``, which may take
+    the flash backend), both without the softcap: not the same function."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
+
+    q, k, v, kw = call
+    kw = {**dict(window=None, cap=None, q_offset=0), **kw}
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    gen = torch.Generator(device=q.device).manual_seed(17)
+    do = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    o, lse, forward = ops._forward(q, k, v, kw, want_lse=True)
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+    which = kernel.bwd_variant(q)
+
+    def backward():
+        kernel.launch_flash_attention_bwd(q, k, v, o, lse, do, delta, dq, dk, dv, variant=which,
+                                          forward=forward, **kw)
+
+    backward()
+    err = 0.0
+    for h in range(hkv):  # the plain backward, one KV head's group at a time
+        heads = slice(h * g, (h + 1) * g)
+        qh, kh, vh, oh, doh = (t.float() for t in (q[:, :, heads], k[:, :, h:h + 1],
+                                                   v[:, :, h:h + 1], o[:, :, heads],
+                                                   do[:, :, heads]))
+        want = ref.flash_attention_bwd_ref(qh, kh, vh, oh, lse[:, heads], doh, **kw)
+        for got, w in zip((dq[:, :, heads], dk[:, :, h:h + 1], dv[:, :, h:h + 1]), want):
+            ok, share = grads_within(got, w, B6_GRAD_TOL["bfloat16"])
+            check(ok, f"timed {name}: KV head {h} within {B6_GRAD_TOL['bfloat16']} "
+                      f"({share:.3g})")
+            err = max(err, float((got.float() - w).abs().max()))
+        del want
+
+    def plain():
+        for h in range(hkv):
+            heads = slice(h * g, (h + 1) * g)
+            ref.flash_attention_bwd_ref(*(t.float() for t in (
+                q[:, :, heads], k[:, :, h:h + 1], v[:, :, h:h + 1], o[:, :, heads])),
+                lse[:, heads], do[:, :, heads].float(), **kw)
+
+    pairs = attention_pairs(sq, skv, **kw)
+    flops = 10 * d * hq * b * pairs
+    moved_bytes = 2 * (q.numel() + k.numel() + v.numel()) * q.element_size() \
+        + 2 * q.numel() * q.element_size() + lse.numel() * 4
+    i = torch.arange(sq, device=q.device)[:, None] + kw["q_offset"]
+    j = torch.arange(skv, device=q.device)[None, :]
+    mask = i >= j
+    if kw["window"] is not None:
+        mask &= (i - j) < kw["window"]
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    masks_nothing = kw["window"] is None or kw["window"] >= sq + kw["q_offset"]
+
+    def library_backward(**opts):
+        out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                                               **opts)
+        return lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+    lib = library_backward(attn_mask=mask)
+    lib_causal = (library_backward(is_causal=True) if masks_nothing and kw["q_offset"] == 0
+                  and sq == skv else None)
+    timing = kernel_device_ms(backward, "flash_attention_bwd", 10)
+    entry = {"name": name, "route": "cuda",
+             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+             "replaces": "src/repro/kernels/flash_attention/kernel.py:73",
+             "replaces_note": "B6's backward: the reference differentiates B6's callers "
+                              "(nn/attention.py _direct, _chunked) by XLA's autodiff; "
+                              "flash_attention_pallas has no gradient",
+             "kernel": which, "forward_kernel": forward, "max_abs_err": err,
+             "ms": time_ms(backward, 10), "device_ms": timing["ms"],
+             "device_ms_by_kernel": timing.get("by_kernel"),
+             "plain_ms": time_ms(plain, 1),
+             "bound_ms": max(flops / BF16_FLOP_PER_S, moved_bytes / HBM_BYTES_PER_S) * 1e3,
+             "bound_by": "operations" if flops / BF16_FLOP_PER_S >= moved_bytes / HBM_BYTES_PER_S
+             else "bytes",
+             "library_ms": time_ms(lib, 5),
+             "library_note": "not the same function: SDPA's backward, no softcap",
+             "library_causal_ms": time_ms(lib_causal, 5) if lib_causal else None,
+             "library_causal_note": "not the same function: no softcap; is_causal, no mask",
+             "shape": {"B": b, "Sq": sq, "Skv": skv, "Hq": hq, "Hkv": hkv, "D": d,
+                       "dtype": str(q.dtype), **kw, "pairs": pairs, "flop": flops}}
+    entry["tflop_per_s"] = flops / entry["device_ms"] / 1e9
     return entry
 
 
@@ -3731,7 +4205,7 @@ def full_graph_call(pg, seed: int):
 def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
     import torch
 
-    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.configs.common import LM_SHAPES, RECSYS_SHAPES
     from repro_torch.core import PropGraph, bitplane
     from repro_torch.data import dlrm_batch
     from repro_torch.graph.generators import random_uniform_graph
@@ -3748,7 +4222,7 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
         with ThreadPoolExecutor(len(SOURCES)) as pool:
             list(pool.map(lambda build: build(), (kernel.build, ns_kernel.build, sm_kernel.build,
                                                   eb_kernel.build, fa_kernel.build,
-                                                  fa_kernel.build_sm90)))
+                                                  fa_kernel.build_sm90, fa_kernel.build_bwd)))
     out["kernel_build_s"] = time.perf_counter() - t0
 
     # --- phase 2: kernels against their plain versions
@@ -3758,6 +4232,13 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
         {"b6_largest_tolerance_share": max((v["kernel"] for v in
                                             out.get("b6_tolerance_share", {}).values()),
                                            default=None)}), flush=True)
+    # phase 5's B6 backward lines, timed while the process is young: the card host's
+    # profiler loses more device records the older the process (on_card)
+    if device == "cuda":
+        b6b = flash_attention_bwd_entries(device)
+        print("phase 5 (early) B6 backward", json.dumps(
+            [{k: e[k] for k in ("name", "device_ms", "ms", "bound_ms", "plain_ms",
+                                "library_ms", "library_causal_ms")} for e in b6b]), flush=True)
 
     # --- phase 3: the main path (packed layout)
     src, dst = random_uniform_graph(edges, seed=seed)
@@ -3989,7 +4470,7 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
                                     out["lm"]["prefill_8k"]["b6_launches_by_layer"][kind])
               for kind, call in zip(("local", "global"), b6_calls)]
         check(all(e["kernel"] == "sm90" for e in b6), "prefill_8k's layers ran the wgmma/TMA kernel")
-        out["kernels"] = [b1, b2, b3, *b4, b4b, *b5, *b5t, *b6]
+        out["kernels"] = [b1, b2, b3, *b4, b4b, *b5, *b5t, *b6, *b6b]
         for entry in out["kernels"]:  # on the kernel's own time
             entry["share_of_bound"] = entry["bound_ms"] / entry["device_ms"]
             if "device_ms_cold_l2" in entry:
@@ -4009,6 +4490,25 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
           "the sparse update within", SPARSE_UPDATE_TOL, "of the dense one", json.dumps(
               {"step0": tr["step0"], "launches": tr["launches"],
                "losses": [x["loss"] for x in tr["steps"]]}), flush=True)
+
+    # --- phase 3k: LM training (Gemma-2-9B at its published widths), after 3j (b) freed
+    # its state and after phase 5, whose profiler sessions keep their age (on_card)
+    out["train_lm"] = train_lm_phase(seed, device, sync)
+    tl = out["train_lm"]
+    print("phase 3k timings", json.dumps({
+        "phase_s": tl["phase_s"], "example_s": tl["example"]["s"],
+        **{k: {x: v.get(x) for x in ("grad_ms", "step_ms", "grad_peak_gib", "peak_gib")}
+           for k, v in tl["steps"].items()}}), flush=True)
+    print("phase 3k ok: two full-width f32 layers' step-0 loss and gradients within",
+          LM_GRAD_TOL, "of the plain chunked path's;", LM_TRAIN_LAYERS, "bf16 layers' step-0",
+          "loss and gradients bitwise equal with remat on and off and the loss falling;",
+          "the example's restart bitwise", json.dumps(
+              {"grad_check": tl["grad_check"], "launches": tl["launches"],
+               "losses": {k: [x["loss"] for x in v["steps"]] for k, v in tl["steps"].items()},
+               "example": tl["example"]["lines"]}), flush=True)
+    if device == "cuda":
+        check(tl["launches"]["bwd_mma"] > 0 and min(tl["launches"]["sm90"].values()) > 0,
+              "3k: the LM's training launched B6's backward and its forward at both layer kinds")
 
     # --- phase 3h: the service and wire layer over the same graph.  It runs after phase 5:
     # placed after 3g it aged the process by its 40 s and two subprocesses, and phase 5's
@@ -4054,13 +4554,10 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
               "shard_bytes": {b: one[b]["shard_bytes"] for b in ("arr", "list", "listd")},
               "pagerank_l1": one["arr"]["analytics"]["pagerank_l1"]}), flush=True)
 
-    # --- phase 3j (c), (d): the training CLI on the card; B6 refuses a gradient
+    # --- phase 3j (c), 3k (iv): the training CLI on the card
     out["train_cli"] = train_cli_phase(device)
-    if device == "cuda":
-        out["b6_refuses_grad"] = b6_refuses_grad(device)
-    print("phase 3j (c, d) ok: the training CLI exits 0 with 'done' for GCN and DLRM;",
-          "B6 refuses a gradient on the card", json.dumps(
-              {"cli": out["train_cli"], "b6": out.get("b6_refuses_grad")}), flush=True)
+    print("phase 3j (c), 3k (iv) ok: the training CLI exits 0 with 'done' for GCN, DLRM and",
+          "Gemma-2", json.dumps({"cli": out["train_cli"]}), flush=True)
 
     if device == "cuda":
         train = {"gnn": train_gnn["launches"], "dlrm": out["train_dlrm"]["launches"]}
@@ -4081,6 +4578,14 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
         for entry, launches in ((b1, svc_out["b1_launches"]), (b3, svc_out["b3_launches"])):
             entry["launches_by_path"]["service"] = launches
             entry["launches"] += launches
+        train_b6 = out["train_lm"]["launches"]  # 3k (ii)'s, by kernel
+        for entry, kind in zip(b6, ("local", "global")):  # sm90 at this entry's layer kind
+            entry["launches_by_path"] = {"serve": entry["launches"],
+                                         "train": train_b6["sm90"][kind]}
+            entry["launches"] += train_b6["sm90"][kind]
+        for entry in b6b:  # bwd_mma, every launch at train_4k's 4,096 tokens
+            entry["launches"] = train_b6["bwd_mma"]
+            entry["launches_by_path"] = {"train": train_b6["bwd_mma"]}
         b2["launches_by_path"] = {"byte": b2["launches"]}
         for entry, kernel in ((b1, ops.PACKED), (b2, ops.BYTE)):
             entry["launches_by_path"]["mesh"] = mesh_out["launches"][kernel]
@@ -4088,7 +4593,9 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
         out["peak_mem_gib"] = max(torch.cuda.max_memory_allocated() / 2**30,
                                   out["gnn"]["peak_mem_gib"], out["gnn"]["peak_mem_gib_before"],
                                   out["recsys"]["peak_mem_gib"], out["lm"]["peak_mem_gib"],
-                                  out["train_dlrm"]["peak_mem_gib"], svc_out["mem_peak_gib"])
+                                  out["train_dlrm"]["peak_mem_gib"], svc_out["mem_peak_gib"],
+                                  out["train_lm"]["grad_check"]["peak_gib"],
+                                  *(v["peak_gib"] for v in out["train_lm"]["steps"].values()))
     return out
 
 
@@ -4113,6 +4620,7 @@ def main() -> int:
                       "cuda": torch.version.cuda}), flush=True)
     out = run(args.edges, args.seed, "cuda")
     kernels = out.pop("kernels")
+    out["device_ms_by_cuda_events"] = DEVICE_MS_BY_EVENTS
     print("summary", json.dumps(out), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

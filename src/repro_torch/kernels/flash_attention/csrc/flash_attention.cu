@@ -13,6 +13,9 @@
 //     acc / max(l, 1e-30).  A query row with no valid key comes out as the
 //     mean of all Skv rows of V, as the reference's does (uniform weights
 //     over -1e30 scores).  Any Sq and Skv: the ragged last tiles are masked.
+//     With a non-null lse (B, Hq, Sq) f32 it also writes each row's
+//     log-sum-exp m + log l (natural log; -1e30 on a row with no valid key)
+//     for flash_attention_bwd.cu.
 //
 // What bounds it on an H100: operations.  At Gemma-2-9B's prefill shape
 // (Sq = Skv = 8192, Hq = 16, Hkv = 8, D = 256) a layer does 4 * D * Hq =
@@ -70,6 +73,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, Hq, Sq) row log-sum-exp for the backward, or null: no write
   int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
   int sq, skv, hq, hkv, d;
   int causal, has_window, window, has_cap, q_offset;
@@ -377,6 +381,9 @@ flash_attention_mma_kernel(const Params p) {
   for (int r = 0; r < 2; ++r) {
     const int i = i0 + r_local[r];
     if (i >= p.sq) continue;
+    if (p.lse != nullptr && lane % 4 == 0) {
+      p.lse[((int64_t)b * p.hq + h) * p.sq + i] = none[r] ? kNegInf : m[r] + logf(l[r]);
+    }
     const float inv_l = 1.0f / fmaxf(l[r], 1e-30f);
     __nv_bfloat16* orow = oh + (int64_t)i * p.o_ss;
 #pragma unroll
@@ -498,6 +505,9 @@ flash_attention_simt_kernel(const Params p) {
   }
 
   if (!row_ok) return;
+  if (p.lse != nullptr && part == 0) {
+    p.lse[((int64_t)b * p.hq + h) * p.sq + i] = none ? kNegInf : m + logf(l);
+  }
   float* orow = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh + (int64_t)i * p.o_ss;
   const float inv_l = 1.0f / fmaxf(l, 1e-30f);
 #pragma unroll
@@ -536,19 +546,21 @@ cudaError_t launch_simt(const Params& p, int batch, cudaStream_t stream) {
 
 // strides: element strides of the B, S and H dims of q, k, v and o, in that
 // order (12 values; D is contiguous).  dtype: 0 = float32, 1 = bfloat16.
+// lse: (B, Hq, Sq) f32 contiguous, or null.
 // The caller has checked 1 <= d <= 256, hq % hkv == 0, |q_offset| + sq +
 // skv < 2^30 and |window| <= 2^30.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       const long long* strides, int batch, int sq, int skv,
                                       int hq, int hkv, int d, int causal, int has_window,
                                       int window, int has_cap, float cap, int q_offset,
-                                      float scale, int dtype, void* stream) {
+                                      float scale, int dtype, float* lse, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Params p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.q_sb = strides[0];
   p.q_ss = strides[1];
   p.q_sh = strides[2];

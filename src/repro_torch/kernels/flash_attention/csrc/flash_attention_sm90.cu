@@ -12,7 +12,11 @@
 //     (causal) and q_pos - k_pos < window, q_pos = q_offset + i; masked
 //     scores are -1e30; a row with no valid key is the mean of all Skv rows
 //     of V; the result is acc / max(l, 1e-30); query head h reads KV head
-//     h / G; any Sq and Skv.
+//     h / G; any Sq and Skv.  With a non-null lse (B, Hq, Sq) f32 it also
+//     writes each row's log-sum-exp, (m + log2 l) ln 2 from the log2-unit
+//     running max m and sum l (natural log; -1e30 on a row with no valid
+//     key) for flash_attention_bwd.cu, which recomputes scores as this
+//     kernel does.
 //
 // What bounds it on an H100: operations.  At Gemma-2-9B's prefill shape
 // (Sq = Skv = 8192, Hq = 16, Hkv = 8, D = 256) a layer does 4 * D * Hq =
@@ -87,9 +91,10 @@ constexpr int kSchedBar = 1;       // named barriers kSchedBar + w: warpgroup w'
 
 struct Params {
   void* o;
+  float* lse;     // (B, Hq, Sq) row log-sum-exp for the backward, or null: no write
   const void* v;  // for the mean pass
   int64_t o_sb, o_ss, o_sh, v_sb, v_ss, v_sh;
-  int sq, skv, d, group;
+  int sq, skv, hq, d, group;
   int causal, has_window, window, has_cap, q_offset;
   float score_scale;  // D^-0.5 log2(e): a score in log2 units, no cap
   float cap_in;       // 2 log2(e) D^-0.5 / cap
@@ -595,6 +600,10 @@ __device__ __forceinline__ void consume(const Params& p, const unsigned char* qs
   for (int r = 0; r < 2; ++r) {
     const int i = i0 + r_local + 8 * r;
     if (i >= p.sq) continue;
+    if (p.lse != nullptr && lane % 4 == 0) {
+      p.lse[((int64_t)b * p.hq + h) * p.sq + i] =
+          m[r] == kNegInf ? kNegInf : (m[r] + log2f(l[r])) * 0.6931471805599453f;
+    }
     const float inv_l = 1.0f / fmaxf(l[r], 1e-30f);
     __nv_bfloat16* orow = oh + (int64_t)i * p.o_ss + 2 * (lane % 4);
 #pragma unroll
@@ -764,12 +773,12 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorM
 // order (12 values; D is contiguous).  The caller has checked the kernel's
 // domain (kernel.variant): bf16, d a multiple of 8 in [8, 256], 16-byte
 // aligned bases and strides, hq % hkv == 0, |q_offset| + sq + skv < 2^30
-// and |window| <= 2^30.
+// and |window| <= 2^30.  lse: (B, Hq, Sq) f32 contiguous, or null.
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k, const void* v, void* o,
                                            const long long* strides, int batch, int sq, int skv,
                                            int hq, int hkv, int d, int causal, int has_window,
                                            int window, int has_cap, float cap, int q_offset,
-                                           void* stream) {
+                                           float* lse, void* stream) {
   if (batch <= 0 || sq <= 0 || skv <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || d < 8 ||
       d > 256 || d % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -782,6 +791,7 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k, const v
   }
   Params p;
   p.o = o;
+  p.lse = lse;
   p.v = v;
   p.v_sb = strides[6];
   p.v_ss = strides[7];
@@ -791,6 +801,7 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k, const v
   p.o_sh = strides[11];
   p.sq = sq;
   p.skv = skv;
+  p.hq = hq;
   p.d = d;
   p.group = hq / hkv;
   p.causal = causal;

@@ -14,19 +14,26 @@ alignment (``sm90``: wgmma and TMA; ``mma``: mma.sync, other bf16 inputs;
 the card to the plain version: a refused launch raises.
 ``launches`` counts kernel launches (never plain-version calls): the total
 under ``FLASH_ATTENTION`` and each kernel under ``COUNTERS[variant]``;
-``reset_launches()`` zeroes them.
+the backward's launches (one a backward call: its three kernels Dᵢ, dK/dV
+and dQ) under ``FLASH_ATTENTION_BWD`` and ``BWD_COUNTERS[variant]``;
+``reset_launches()`` zeroes them all.
 
-B6 has no backward kernel yet (ROADMAP A15b): on CUDA tensors, a call
-with grad mode on and q, k or v requiring a gradient raises
-``NotImplementedError`` rather than returning an output autograd cannot
-see through.  Serving runs under ``torch.inference_mode()`` or on weights
-that need no gradient, and the CPU's plain path keeps autograd.
+Gradients: on CUDA tensors, with grad mode on and q, k or v requiring a
+gradient, the call goes through ``_FlashAttention``, a
+``torch.autograd.Function`` whose forward launches the forward kernel with
+its row log-sum-exp output and whose backward launches
+``flash_attention_bwd.cu`` (``kernel.bwd_variant``: bf16 on mma.sync, f32
+on SIMT FMAs; bf16 recomputes the scores as the forward kernel did).  Its
+gradient is the reference's trainable one (XLA's autodiff of ``_direct``),
+rows with no valid key included (ROADMAP C.23).
+CPU tensors differentiate the plain version by torch autograd.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.flash_attention import kernel, ref
 
@@ -34,7 +41,10 @@ __all__ = ["flash_attention", "launches", "reset_launches"]
 
 FLASH_ATTENTION = "flash_attention"  # B6, every kernel
 COUNTERS = {v: f"{FLASH_ATTENTION}_{v}" for v in kernel.VARIANTS}  # B6 by kernel
-launches: Dict[str, int] = {FLASH_ATTENTION: 0, **{c: 0 for c in COUNTERS.values()}}
+FLASH_ATTENTION_BWD = "flash_attention_bwd"  # B6's backward, every kernel
+BWD_COUNTERS = {v: f"{FLASH_ATTENTION}_{v}" for v in kernel.BWD_VARIANTS}
+launches: Dict[str, int] = {FLASH_ATTENTION: 0, **{c: 0 for c in COUNTERS.values()},
+                            FLASH_ATTENTION_BWD: 0, **{c: 0 for c in BWD_COUNTERS.values()}}
 
 
 def reset_launches() -> None:
@@ -69,6 +79,45 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int) -> 
             raise ValueError(f"{name}: B and Hq must lie below 2**16")
 
 
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kw: dict, want_lse: bool):
+    """The forward kernel's output, with ``want_lse`` its row log-sum-exp
+    (B, Hq, Sq) f32 (else None), and the kernel's name (``VARIANTS``)."""
+    b, sq, hq, _ = q.shape
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if want_lse else None
+    which = kernel.variant(q, k, v)
+    kernel.launch_flash_attention(q, k, v, o, variant=which, lse=lse, **kw)
+    launches[FLASH_ATTENTION] += 1
+    launches[COUNTERS[which]] += 1
+    return o, lse, which
+
+
+class _FlashAttention(torch.autograd.Function):
+    """B6 forward with its log-sum-exp, B6 backward (module docstring);
+    CUDA tensors only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw: dict):
+        o, lse, ctx.forward = _forward(q, k, v, kw, want_lse=True)
+        ctx.kw = kw
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
+        dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
+        delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+        which = kernel.bwd_variant(q)
+        kernel.launch_flash_attention_bwd(q, k, v, o, lse, do, delta, dq, dk, dv, variant=which,
+                                          forward=ctx.forward, **ctx.kw)
+        launches[FLASH_ATTENTION_BWD] += 1
+        launches[BWD_COUNTERS[which]] += 1
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                     window: Optional[int] = None, cap: Optional[float] = None,
                     q_offset: int = 0, bq: int = 128, bkv: int = 128) -> torch.Tensor:
@@ -80,16 +129,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap,
                                        q_offset=q_offset)
+    kw = dict(causal=causal, window=window, cap=cap, q_offset=q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            f"{FLASH_ATTENTION}: B6 has no backward kernel on the card yet (ROADMAP A15b); "
-            "call it under torch.no_grad() or on tensors that need no gradient")
+        if q.numel() == 0 or k.shape[1] == 0:
+            raise ValueError(f"{FLASH_ATTENTION}: no backward for empty q, k or v on the card")
+        return _FlashAttention.apply(q, k, v, kw)
     if q.numel() == 0 or k.shape[1] == 0:  # no keys: every output row sums nothing
         return torch.zeros(q.shape, dtype=q.dtype, device=q.device)
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    which = kernel.variant(q, k, v)
-    kernel.launch_flash_attention(q, k, v, o, causal=causal, window=window, cap=cap,
-                                  q_offset=q_offset, variant=which)
-    launches[FLASH_ATTENTION] += 1
-    launches[COUNTERS[which]] += 1
-    return o
+    return _forward(q, k, v, kw, want_lse=False)[0]

@@ -9,10 +9,10 @@ on the card unless ``--device cpu`` is given.
 
 Families: ``lm`` (the dense LMs), ``recsys`` (``dlrm-rm2``) and ``gnn``
 (``gcn-cora``; the science models wait for ROADMAP A14).  On the card the
-GCN's aggregation runs B5 forward and B5ᵀ backward, and DLRM's lookup B4
-forward with its backward on B5.  LM training on the card waits for B6's
-backward kernel (ROADMAP A15b): B6 refuses a gradient there, so the LM
-archs train on the CPU only.
+GCN's aggregation runs B5 forward and B5ᵀ backward, DLRM's lookup B4
+forward with its backward on B5, and every LM layer's attention B6 forward
+(with its row log-sum-exp) and B6's backward kernels (``flash_attention_bwd.cu``),
+each pattern group rematerialized as the config's ``remat`` says.
 
 Fault tolerance: the ``TrainController`` checkpoints every ``--ckpt-every``
 steps and resumes from the newest checkpoint; ``--fail-at`` injects a

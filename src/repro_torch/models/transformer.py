@@ -24,6 +24,15 @@ tensors of a long decode.
 Token ids are read as the reference's ``embed[tokens]`` reads them: ids in
 [-V, -1] wrap, ids past V-1 read row V-1 and ids below -V read row 0.
 
+Training: with ``cfg.remat`` (the reference's default) each pattern group
+of ``forward`` runs under ``torch.utils.checkpoint`` (non-reentrant) when a
+gradient is being taken, as the reference checkpoints its scan body:
+``remat_policy="full"`` keeps only the group's input and recomputes
+the group in the backward; ``"dots"`` keeps the outputs of the matrix
+products without batch dims (the projections and the FFN, ``aten.mm``) and
+recomputes the rest, as ``dots_with_no_batch_dims_saveable``.  A recomputed
+layer launches B6's forward again on the card.
+
 Params are plain dicts of tensors; ``Transformer`` wraps them in an
 ``nn.Module``.  Matrices are held in ``cfg.dtype`` and norm scales in f32
 (``init_params``, ``params_from_reference``): the same function as the
@@ -33,11 +42,13 @@ use and reads norm scales from in f32.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels.seg_mm.ref import gather_rows
@@ -46,6 +57,9 @@ from repro_torch.nn.layers import label_logits, linear, mlp, rmsnorm, rope, soft
 
 __all__ = ["TransformerConfig", "Transformer", "init_params", "params_from_reference",
            "forward", "loss_fn", "prefill", "decode_step", "init_cache"]
+
+
+REMAT_POLICIES = ("full", "dots")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,8 +104,13 @@ class TransformerConfig:
     attn_impl: str = "auto"
     attn_chunk: int = 1024
     loss_chunk: int = 1024                  # sequence chunking for lm-head+loss
-    remat: bool = True                      # training (ROADMAP A15): kept, unused
-    remat_policy: str = "full"
+    remat: bool = True                      # recompute each pattern group in the backward
+    remat_policy: str = "full"              # "full", or "dots": keep the matmul outputs
+
+    def __post_init__(self):
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"{self.name}: remat_policy {self.remat_policy!r} is not one of "
+                             f"{REMAT_POLICIES}")
 
     @property
     def n_groups(self) -> int:
@@ -329,22 +348,54 @@ def _ffn_block(lp: Dict, x: torch.Tensor, cfg: TransformerConfig):
     return y, 0.0
 
 
+def _group(params: Dict, g: int, x: torch.Tensor, positions: torch.Tensor,
+           cfg: TransformerConfig):
+    """Pattern group ``g`` (the reference's scan body): (x, its aux losses)."""
+    aux = 0.0
+    for i, kind in enumerate(cfg.pattern):
+        lp = _layer(params, i, g)
+        a, _ = _attn_block(lp, x, cfg, kind, positions=positions)
+        x = x + a
+        f, a_aux = _ffn_block(lp, x, cfg)
+        x = x + f
+        aux = aux + a_aux
+    return x, aux
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)  # matmuls with no batch dims
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    if op in _DOTS:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: TransformerConfig):
+    """A group checkpointed per ``cfg.remat_policy``."""
+    if cfg.remat_policy == "dots":
+        ctx = functools.partial(_ckpt.create_selective_checkpoint_contexts, _dots_policy)
+        return functools.partial(_ckpt.checkpoint, _group, use_reentrant=False, context_fn=ctx)
+    return functools.partial(_ckpt.checkpoint, _group, use_reentrant=False)
+
+
 def forward(params: Dict, tokens: torch.Tensor,
             cfg: TransformerConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Training/prefill forward.  tokens: (B, S) → (hidden (B, S, D), aux_loss)."""
+    """Training/prefill forward.  tokens: (B, S) → (hidden (B, S, D), aux_loss).
+    Under autograd each pattern group is rematerialized per ``cfg.remat``
+    (module docstring)."""
     _dense_only(cfg)
     _, s = tokens.shape
     x = _embed(params, tokens, cfg)
     positions = torch.arange(s, device=x.device)[None, :]
     aux = 0.0
+    records = torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for _, t in _flatten(params["groups"], "")))
+    group = _remat(cfg) if cfg.remat and records else _group
     for g in range(cfg.n_groups):
-        for i, kind in enumerate(cfg.pattern):
-            lp = _layer(params, i, g)
-            a, _ = _attn_block(lp, x, cfg, kind, positions=positions)
-            x = x + a
-            f, a_aux = _ffn_block(lp, x, cfg)
-            x = x + f
-            aux = aux + a_aux
+        x, g_aux = group(params, g, x, positions, cfg)
+        aux = aux + g_aux
     x = rmsnorm(params["final_norm"], x, plus_one=cfg.post_norms)
     # a fill, not torch.tensor: no host-to-device copy waits on the card here
     return x, torch.full((), aux / cfg.n_layers, dtype=torch.float32, device=x.device)

@@ -6,7 +6,9 @@ Supports causal masking, sliding windows, Gemma-2's logit softcap, GQA
 
 Routing:
   * CUDA tensors with ``kv_len is None`` run B6 whatever ``impl`` says:
-    the card's prefill always goes through the kernel.
+    the card's prefill and training always go through the kernel, and a
+    gradient through B6's backward kernels (``kernels/flash_attention``),
+    which give the reference's ``_direct`` gradient.
   * CPU tensors take the reference's branch: ``auto`` is ``direct`` when
     Sq·Skv ≤ 1024·2048 and ``chunked`` otherwise; ``direct`` materializes
     the (Sq, Skv) scores; ``chunked`` is FlashAttention's algorithm over KV

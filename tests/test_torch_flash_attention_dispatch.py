@@ -71,9 +71,26 @@ def test_launching_a_kernel_of_another_dtype_raises():
                                           q_offset=0, variant=name)
 
 
+def test_launching_a_backward_kernel_of_another_dtype_raises():
+    q, k, v = _qkv()
+    f = [t.float() for t in (q, k, v)]
+    lse = torch.zeros((q.shape[0], q.shape[2], q.shape[1]))
+    for ts, name, forward in ((f, "bwd_mma", "simt"), ((q, k, v), "bwd_simt", "sm90"),
+                              (f, "mma", "simt"), ((q, k, v), "bwd_mma", "simt"),
+                              (f, "bwd_simt", "mma")):
+        with pytest.raises(ValueError, match="no backward kernel"):
+            kernel.launch_flash_attention_bwd(*ts, ts[0], lse, ts[0], lse.clone(),
+                                              *(t.clone() for t in ts), causal=True,
+                                              window=None, cap=None, q_offset=0, variant=name,
+                                              forward=forward)
+    assert kernel.bwd_variant(q) == "bwd_mma" and kernel.bwd_variant(f[0]) == "bwd_simt"
+
+
 def test_every_kernel_has_its_own_counter():
     assert set(ops.COUNTERS) == set(kernel.VARIANTS) == {"sm90", "mma", "simt"}
-    assert set(ops.launches) == {ops.FLASH_ATTENTION, *ops.COUNTERS.values()}
+    assert set(ops.BWD_COUNTERS) == set(kernel.BWD_VARIANTS) == {"bwd_mma", "bwd_simt"}
+    assert set(ops.launches) == {ops.FLASH_ATTENTION, *ops.COUNTERS.values(),
+                                 ops.FLASH_ATTENTION_BWD, *ops.BWD_COUNTERS.values()}
     for name in ops.launches:
         ops.launches[name] = 3
     ops.reset_launches()

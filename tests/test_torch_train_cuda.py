@@ -1,10 +1,10 @@
 """Training on the card against the port on the CPU: the backward passes
-of the kernels (B5ᵀ, B4's backward on B5) against the plain versions'
-autograd on ragged shapes with out-of-range ids and empty rows, bitwise
-run to run; the weight gradient B5 refuses; B6 refusing a gradient (ROADMAP
-A15b); GCN and DLRM gradients at 1e-4 against the CPU port on the same
-inputs; ``make_smoke_step`` on the card for GCN and DLRM, and a bitwise
-GCN restart there.  Needs an NVIDIA card (marker ``cuda``; skips without
+of the kernels (B5ᵀ, B4's backward on B5, B6's backward) against the plain
+versions on ragged shapes with out-of-range ids, empty rows and query rows
+with no valid key, bitwise run to run; the weight gradient B5 refuses;
+GCN, DLRM and LM gradients at 1e-4 against the CPU port on the same
+inputs; ``make_smoke_step`` on the card for GCN, DLRM and an LM, and a
+bitwise restart there.  Needs an NVIDIA card (marker ``cuda``; skips without
 one).  Imports neither JAX nor the reference package:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_train_cuda.py
@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.kernels.embedding_bag import ref as eb_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.seg_mm import ops as sm_ops
 from repro_torch.kernels.seg_mm import ref as sm_ref
 from repro_torch.launch import train
@@ -98,11 +99,94 @@ def test_b4_backward_matches_the_plain_backward(cuda, b, f, v, d, mh):
     torch.testing.assert_close(got[0], want, rtol=1e-5, atol=1e-6)
 
 
+# (b, sq, skv, hq, hkv, d, kwargs): ragged lengths, G = 1, 2, 8, D = 16..256, causal
+# on and off, window, softcap, q_offset (rows with no valid key at q_offset < 0)
+B6_BWD_CASES = [
+    (1, 200, 200, 16, 8, 256, dict(causal=True, window=64, cap=50.0)),
+    (2, 77, 131, 4, 2, 16, dict(causal=True, q_offset=-5)),
+    (1, 130, 97, 8, 1, 64, dict(causal=False, cap=30.0)),
+    (1, 150, 150, 8, 8, 128, dict(causal=True, window=40, q_offset=-20)),
+    (1, 33, 70, 2, 2, 40, dict(causal=False, window=20, q_offset=60)),
+]
+# gradients against the plain backward (f32; from bf16 inputs for bf16), relative to
+# the largest |gradient|: f32 sums of up to Sq·G terms in another order; bf16 P and dS
+# rounded to bf16 before their products, as the kernel does
+B6_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
 @pytest.mark.cuda
-def test_b6_refuses_a_gradient(cuda):
-    q = torch.randn((1, 64, 4, 16), device=cuda, requires_grad=True)
-    k = torch.randn((1, 64, 2, 16), device=cuda)
-    with pytest.raises(NotImplementedError, match="A15b"):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,kw", B6_BWD_CASES)
+def test_b6_backward_matches_the_plain_backward(cuda, b, sq, skv, hq, hkv, d, kw, dtype):
+    rng = np.random.default_rng(sq + skv + d)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+                   .to(cuda) for shape in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d),
+                                           (b, sq, hq, d)))
+    o, lse = fa_ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    want = fa_ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), lse,
+                                          do.float(), **kw)
+    got = []
+    for _ in range(2):
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        fa_ops.reset_launches()
+        fa_ops.flash_attention(*ts, **kw).backward(do)
+        torch.cuda.synchronize()
+        assert fa_ops.launches[fa_ops.FLASH_ATTENTION_BWD] == 1
+        assert fa_ops.launches[fa_ops.BWD_COUNTERS["bwd_simt" if dtype == torch.float32
+                                                    else "bwd_mma"]] == 1
+        got.append([t.grad for t in ts])
+    tol = B6_BWD_TOL[dtype]
+    for g, again, w in zip(*got, want):
+        assert g.dtype == dtype and torch.equal(g, again)
+        scale = float(w.abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol * max(scale, 1e-3))
+
+
+# bf16 inputs TMA refuses, which the mma forward takes: (b, sq, skv, hq, hkv, d, pad,
+# kwargs), q, k and v views of rows ``pad`` elements wider (strides no multiple of 8) or
+# D no multiple of 8; the backward recomputes S as the mma kernel did
+B6_BWD_MMA_CASES = [
+    (1, 90, 150, 4, 2, 20, 0, dict(causal=True, cap=30.0, q_offset=-7)),
+    (2, 200, 170, 8, 2, 64, 4, dict(causal=True, window=50, cap=50.0)),
+    (1, 130, 130, 8, 4, 256, 4, dict(causal=True, window=40, cap=50.0)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,pad,kw", B6_BWD_MMA_CASES)
+def test_b6_backward_after_the_mma_forward(cuda, b, sq, skv, hq, hkv, d, pad, kw):
+    from repro_torch.kernels.flash_attention import kernel
+
+    rng = np.random.default_rng(sq + skv + d)
+    wide = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+            .to(cuda) for shape in ((b, sq, hq, d + pad), (b, skv, hkv, d + pad),
+                                    (b, skv, hkv, d + pad))]
+    do = torch.from_numpy(rng.standard_normal((b, sq, hq, d)).astype(np.float32)).to(
+        torch.bfloat16).to(cuda)
+    q, k, v = (t[..., :d] for t in wide)
+    assert kernel.variant(q, k, v) == "mma"
+    o, lse = fa_ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    want = fa_ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), lse,
+                                          do.float(), **kw)
+    got = []
+    for _ in range(2):
+        ts = [t.clone()[..., :d].requires_grad_(True) for t in wide]
+        fa_ops.reset_launches()
+        got.append(torch.autograd.grad(fa_ops.flash_attention(*ts, **kw), ts, do))
+        assert fa_ops.launches[fa_ops.COUNTERS["mma"]] == 1
+        assert fa_ops.launches[fa_ops.BWD_COUNTERS["bwd_mma"]] == 1
+    tol = B6_BWD_TOL[torch.bfloat16]
+    for g, again, w in zip(*got, want):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, again)
+        scale = float(w.abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol * max(scale, 1e-3))
+
+
+@pytest.mark.cuda
+def test_b6_gradient_of_empty_inputs_raises(cuda):
+    q = torch.randn((1, 0, 4, 16), device=cuda, requires_grad=True)
+    k = torch.randn((1, 8, 2, 16), device=cuda)
+    with pytest.raises(ValueError, match="no backward for empty"):
         fa_ops.flash_attention(q, k, k)
     with torch.no_grad():
         assert fa_ops.flash_attention(q, k, k).shape == q.shape
@@ -147,7 +231,7 @@ def test_gcn_and_dlrm_gradients_on_the_card_match_the_cpu(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["gcn-cora", "dlrm-rm2"])
+@pytest.mark.parametrize("arch", ["gcn-cora", "dlrm-rm2", "gemma2-9b"])
 def test_smoke_training_restarts_bitwise_on_the_card(cuda, arch, tmp_path):
     def run(fail_at, where):
         return train.run_training(arch, steps=12, batch=8, seq=16, ckpt_dir=str(tmp_path / where),
@@ -161,7 +245,31 @@ def test_smoke_training_restarts_bitwise_on_the_card(cuda, arch, tmp_path):
 
 
 @pytest.mark.cuda
-def test_lm_training_on_the_card_waits_for_a15b(cuda):
-    state, step_fn, _ = train.make_smoke_step("gemma2-9b", batch=1, seq=8)
-    with pytest.raises(NotImplementedError, match="A15b"):
-        step_fn(state, 0)
+@pytest.mark.parametrize("arch,policy", [("gemma2-9b", "full"), ("qwen2-72b", "full"),
+                                         ("starcoder2-7b", "full"), ("gemma2-9b", "dots")])
+def test_lm_step_gradients_on_the_card_match_the_cpu(cuda, arch, policy):
+    """An LM smoke config's loss and gradients on the card (B6 forward and
+    backward at every layer) against the CPU port (plain attention), under
+    full rematerialization and under ``"dots"`` (selective checkpointing,
+    which cannot see the kernel's launch and recomputes it)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch(arch).smoke_config(), remat=True, remat_policy=policy)
+    params = T.init_params(torch.Generator().manual_seed(3), cfg, device="cpu")
+    b = lm_batch(0, batch=2, seq=48, vocab=cfg.vocab, device="cpu")
+    loss = lambda p, b: T.loss_fn(p, b["tokens"], b["labels"], cfg)  # noqa: E731
+    want_l, want = _grads(params, loss, b)
+    fa_ops.reset_launches()
+    got_l, got = _grads(tree_map(lambda t: t.to(cuda), params), loss,
+                        {k: v.to(cuda) for k, v in b.items()})
+    # remat: every layer's forward twice (the recompute in the backward), one backward each
+    assert fa_ops.launches[fa_ops.FLASH_ATTENTION] == 2 * cfg.n_layers
+    assert fa_ops.launches[fa_ops.FLASH_ATTENTION_BWD] == cfg.n_layers
+    torch.testing.assert_close(got_l.cpu(), want_l, **TOL)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, **TOL)
