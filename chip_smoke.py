@@ -224,6 +224,8 @@ SOURCES = {  # kernel family -> its CUDA source
     "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "flash_attention_sm90": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu",
     "flash_attention_bwd": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_sm90":
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd_sm90.cu",
 }
 FANOUTS = [15, 10]  # GraphSAGE 15-10
 CHECK_ROWS = 4096  # rows of a sampled layer held to the Python-loop oracle
@@ -908,8 +910,9 @@ def grads_within(got, want, tol: float):
 # and off (at QK_SCALE the scores reach it), q_offset ≠ 0 (rows with no valid key at
 # q_offset < 0 and past the window); train_4k's layer (whose 4,096 window masks nothing
 # at 4,096 tokens) and prefill_8k's local layer (where it does), bf16: the LM's path.
-# Last, bf16 inputs TMA refuses (D = 20; q, k, v views of rows PAD elements wider), which
-# the mma forward takes: the backward recomputes S as that kernel did
+# bf16 inputs TMA takes run on bwd_sm90 after the sm90 forward.  Last, bf16 inputs TMA
+# refuses (D = 20; q, k, v views of rows PAD elements wider), which the mma forward takes,
+# and bwd_mma after it: the backward recomputes S as that kernel did
 B6_BWD_CASES = [
     ((1, 4096, 4096, 16, 8, 256), 0.3, ("bfloat16",), dict(causal=True, window=4096, cap=50.0)),
     ((1, 8192, 8192, 16, 8, 256), 0.3, ("bfloat16",), dict(causal=True, window=4096, cap=50.0)),
@@ -933,7 +936,8 @@ B6_BWD_CASES = [
 
 
 def flash_attention_bwd_checks(device) -> dict:
-    """Phase 2: B6's backward (``flash_attention_bwd.cu``, through the
+    """Phase 2: B6's backward (``flash_attention_bwd_sm90.cu`` after the sm90
+    forward, ``flash_attention_bwd.cu`` after the others, through the
     autograd Function of ``ops.flash_attention``) against the plain backward
     ``ref.flash_attention_bwd_ref`` fed the plain forward's output and
     log-sum-exp, on ``B6_BWD_CASES``, within ``B6_GRAD_TOL``; bitwise from
@@ -969,7 +973,10 @@ def flash_attention_bwd_checks(device) -> dict:
                 check(kernel.variant(*ts) == forward, f"{what}: the copies take {forward}")
                 ops.reset_launches()
                 runs.append(list(torch.autograd.grad(ops.flash_attention(*ts, **kw), ts, do)))
-                which = kernel.bwd_variant(q)
+                which = kernel.bwd_variant(q, forward)
+                check(which == {"sm90": "bwd_sm90", "mma": "bwd_mma",
+                                "simt": "bwd_simt"}[forward],
+                      f"{what}: the backward after {forward} is {which}")
                 check(ops.launches[ops.FLASH_ATTENTION_BWD] == ops.launches[
                     ops.BWD_COUNTERS[which]] == 1 and ops.launches[ops.COUNTERS[forward]] == 1,
                       f"{what}: one launch of {forward} and one of {which}")
@@ -3211,7 +3218,7 @@ def train_lm_phase(seed: int, device: str, sync) -> dict:
            "reduced": {"n_layers": f"{base.n_layers} -> {LM_TRAIN_LAYERS}",
                        "batch": f"{train_4k['global_batch']} -> 1"}}
     kernels = {**ops.COUNTERS, **ops.BWD_COUNTERS}
-    launches = {"sm90": {"local": 0, "global": 0}, "bwd_mma": 0}  # (ii)'s, the training path
+    launches = {"sm90": {"local": 0, "global": 0}, "bwd_sm90": 0}  # (ii)'s, the training path
 
     def launched():  # B6 launches by kernel since the last call
         n = {name: ops.launches[counter] for name, counter in kernels.items()}
@@ -3269,12 +3276,12 @@ def train_lm_phase(seed: int, device: str, sync) -> dict:
     def book(n, by_layer, remat, passes, what):  # (ii)'s launches onto the training path's
         if full:  # remat: each layer's forward twice (the recompute), its backward once
             fwd, bwd = (2 if remat else 1) * cfg8.n_layers * passes, cfg8.n_layers * passes
-            check(only(n, sm90=fwd, bwd_mma=bwd) and sum(by_layer.values()) == fwd,
+            check(only(n, sm90=fwd, bwd_sm90=bwd) and sum(by_layer.values()) == fwd,
                   f"3k (ii) remat={remat}, {what}: B6 launched {n} (calls by layer "
-                  f"{dict(by_layer)}); want {fwd} sm90 and {bwd} bwd_mma")
+                  f"{dict(by_layer)}); want {fwd} sm90 and {bwd} bwd_sm90")
         for kind, calls in by_layer.items():
             launches["sm90"][kind] += calls
-        launches["bwd_mma"] += n["bwd_mma"]
+        launches["bwd_sm90"] += n["bwd_sm90"]
 
     batch = lm_batch(0, batch=1, seq=out["seq"], vocab=cfg8.vocab, seed=seed + 13,
                      device=device)
@@ -3815,11 +3822,17 @@ def flash_attention_bwd_entries(device) -> list:
 
 
 def flash_attention_bwd_entry(name: str, call) -> dict:
-    """Phase 5's line for B6's backward (``flash_attention_bwd.cu``: Dᵢ,
-    dK/dV and dQ, one launch call) at a call's (q, k, v, keywords) with a
-    random bf16 cotangent, from the forward's output and log-sum-exp; its
-    ``launches`` are set where the training path's are read.  ``device_ms``
-    sums the three kernels' own time a call (``by_kernel`` each).  The
+    """Phase 5's line for B6's backward (``bwd_sm90``,
+    ``flash_attention_bwd_sm90.cu``: Dᵢ, dK/dV and dQ, one launch call) at a
+    call's (q, k, v, keywords) with a random bf16 cotangent, from the sm90
+    forward's output and log-sum-exp; its ``launches`` are set where the
+    training path's are read.  ``device_ms`` sums the three kernels' own
+    time a call (``device_ms_by_kernel`` each).  ``flash_attention_bwd.cu``'s
+    ``bwd_mma``, the kernel it replaced, is launched by name on the same
+    inputs and timed beside it in turns (bwd_mma, bwd_sm90, bwd_sm90,
+    bwd_mma; ``turns_ms``): ``earlier_ms`` its best turn, ``ms`` the new
+    kernel's, ``earlier_share_of_tol`` its distance from the new kernel's
+    gradients as a share of ``B6_GRAD_TOL``.  The
     bound counts what these masks keep: five products (S, dP, dV, dK, dQ)
     of 2·D FLOP per kept (q, k) pair and query head at the dense bf16
     rate, against q, k, v, o, dO read once and dq, dk, dv written once.  The plain version (``ref.flash_attention_bwd_ref``,
@@ -3843,13 +3856,28 @@ def flash_attention_bwd_entry(name: str, call) -> dict:
     o, lse, forward = ops._forward(q, k, v, kw, want_lse=True)
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
     delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
-    which = kernel.bwd_variant(q)
+    which = kernel.bwd_variant(q, forward)
+    check(which == "bwd_sm90", f"timed {name}: the backward after {forward} is {which}")
+    old_grads = tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
+    old_delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
 
     def backward():
         kernel.launch_flash_attention_bwd(q, k, v, o, lse, do, delta, dq, dk, dv, variant=which,
                                           forward=forward, **kw)
 
+    def earlier():  # the kernel bwd_sm90 replaced, launched by name: not counted
+        kernel.launch_flash_attention_bwd(q, k, v, o, lse, do, old_delta, *old_grads,
+                                          variant="bwd_mma", forward=forward, **kw)
+
     backward()
+    earlier()
+    again = [t.clone() for t in (dq, dk, dv)]
+    backward()
+    check(all(a.equal(b_) for a, b_ in zip(again, (dq, dk, dv))),
+          f"timed {name}: bwd_sm90 bitwise run to run")
+    earlier_share = max(grads_within(a, b_.float(), B6_GRAD_TOL["bfloat16"])[1]
+                        for a, b_ in zip(old_grads, (dq, dk, dv)))
+    del again
     err = 0.0
     for h in range(hkv):  # the plain backward, one KV head's group at a time
         heads = slice(h * g, (h + 1) * g)
@@ -3893,15 +3921,22 @@ def flash_attention_bwd_entry(name: str, call) -> dict:
     lib_causal = (library_backward(is_causal=True) if masks_nothing and kw["q_offset"] == 0
                   and sq == skv else None)
     timing = kernel_device_ms(backward, "flash_attention_bwd", 10)
+    turns = {"bwd_mma": [], "bwd_sm90": []}
+    for kind in ("bwd_mma", "bwd_sm90", "bwd_sm90", "bwd_mma"):
+        turns[kind].append(time_ms(earlier if kind == "bwd_mma" else backward, 5))
     entry = {"name": name, "route": "cuda",
-             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd_sm90.cu",
              "replaces": "src/repro/kernels/flash_attention/kernel.py:73",
              "replaces_note": "B6's backward: the reference differentiates B6's callers "
                               "(nn/attention.py _direct, _chunked) by XLA's autodiff; "
                               "flash_attention_pallas has no gradient",
              "kernel": which, "forward_kernel": forward, "max_abs_err": err,
-             "ms": time_ms(backward, 10), "device_ms": timing["ms"],
+             "ms": min(turns["bwd_sm90"]), "device_ms": timing["ms"],
              "device_ms_by_kernel": timing.get("by_kernel"),
+             "earlier_ms": min(turns["bwd_mma"]), "earlier_kernel": "bwd_mma",
+             "earlier_source": "src/repro_torch/kernels/flash_attention/csrc/"
+                               "flash_attention_bwd.cu",
+             "earlier_share_of_tol": earlier_share, "turns_ms": turns,
              "plain_ms": time_ms(plain, 1),
              "bound_ms": max(flops / BF16_FLOP_PER_S, moved_bytes / HBM_BYTES_PER_S) * 1e3,
              "bound_by": "operations" if flops / BF16_FLOP_PER_S >= moved_bytes / HBM_BYTES_PER_S
@@ -4222,7 +4257,8 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
         with ThreadPoolExecutor(len(SOURCES)) as pool:
             list(pool.map(lambda build: build(), (kernel.build, ns_kernel.build, sm_kernel.build,
                                                   eb_kernel.build, fa_kernel.build,
-                                                  fa_kernel.build_sm90, fa_kernel.build_bwd)))
+                                                  fa_kernel.build_sm90, fa_kernel.build_bwd,
+                                                  fa_kernel.build_bwd_sm90)))
     out["kernel_build_s"] = time.perf_counter() - t0
 
     # --- phase 2: kernels against their plain versions
@@ -4237,8 +4273,9 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
     if device == "cuda":
         b6b = flash_attention_bwd_entries(device)
         print("phase 5 (early) B6 backward", json.dumps(
-            [{k: e[k] for k in ("name", "device_ms", "ms", "bound_ms", "plain_ms",
-                                "library_ms", "library_causal_ms")} for e in b6b]), flush=True)
+            [{k: e[k] for k in ("name", "device_ms", "device_ms_by_kernel", "ms", "earlier_ms",
+                                "bound_ms", "plain_ms", "library_ms", "library_causal_ms")}
+             for e in b6b]), flush=True)
 
     # --- phase 3: the main path (packed layout)
     src, dst = random_uniform_graph(edges, seed=seed)
@@ -4507,7 +4544,7 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
                "losses": {k: [x["loss"] for x in v["steps"]] for k, v in tl["steps"].items()},
                "example": tl["example"]["lines"]}), flush=True)
     if device == "cuda":
-        check(tl["launches"]["bwd_mma"] > 0 and min(tl["launches"]["sm90"].values()) > 0,
+        check(tl["launches"]["bwd_sm90"] > 0 and min(tl["launches"]["sm90"].values()) > 0,
               "3k: the LM's training launched B6's backward and its forward at both layer kinds")
 
     # --- phase 3h: the service and wire layer over the same graph.  It runs after phase 5:
@@ -4583,9 +4620,9 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
             entry["launches_by_path"] = {"serve": entry["launches"],
                                          "train": train_b6["sm90"][kind]}
             entry["launches"] += train_b6["sm90"][kind]
-        for entry in b6b:  # bwd_mma, every launch at train_4k's 4,096 tokens
-            entry["launches"] = train_b6["bwd_mma"]
-            entry["launches_by_path"] = {"train": train_b6["bwd_mma"]}
+        for entry in b6b:  # bwd_sm90, every launch at train_4k's 4,096 tokens
+            entry["launches"] = train_b6["bwd_sm90"]
+            entry["launches_by_path"] = {"train": train_b6["bwd_sm90"]}
         b2["launches_by_path"] = {"byte": b2["launches"]}
         for entry, kernel in ((b1, ops.PACKED), (b2, ops.BYTE)):
             entry["launches_by_path"]["mesh"] = mesh_out["launches"][kernel]

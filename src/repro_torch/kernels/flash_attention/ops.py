@@ -21,12 +21,17 @@ and dQ) under ``FLASH_ATTENTION_BWD`` and ``BWD_COUNTERS[variant]``;
 Gradients: on CUDA tensors, with grad mode on and q, k or v requiring a
 gradient, the call goes through ``_FlashAttention``, a
 ``torch.autograd.Function`` whose forward launches the forward kernel with
-its row log-sum-exp output and whose backward launches
-``flash_attention_bwd.cu`` (``kernel.bwd_variant``: bf16 on mma.sync, f32
-on SIMT FMAs; bf16 recomputes the scores as the forward kernel did).  Its
-gradient is the reference's trainable one (XLA's autodiff of ``_direct``),
-rows with no valid key included (ROADMAP C.23).
-CPU tensors differentiate the plain version by torch autograd.
+its row log-sum-exp output and whose backward launches the backward kernel
+``kernel.bwd_variant`` names from the saved forward's: after ``sm90``
+``flash_attention_bwd_sm90.cu`` (``bwd_sm90``: wgmma and TMA, the whole LM
+training path), else ``flash_attention_bwd.cu`` (``bwd_mma``: bf16 on
+mma.sync; ``bwd_simt``: f32); bf16 recomputes the scores as the forward
+kernel did.  A cotangent TMA would refuse (a view whose base is not 16-byte
+aligned) is copied for ``bwd_sm90``.  Its gradient is the reference's
+trainable one (XLA's autodiff of ``_direct``), rows with no valid key
+included (ROADMAP C.23).  CPU tensors differentiate the plain version by
+torch autograd.  The card tests: ``python -m pytest -m cuda
+tests/test_torch_train_cuda.py -k b6``.
 """
 from __future__ import annotations
 
@@ -108,9 +113,11 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.to(q.dtype).contiguous()
+        which = kernel.bwd_variant(q, ctx.forward)
+        if which == "bwd_sm90" and not kernel.tma_ready(do):
+            do = do.clone()  # a contiguous view at an unaligned base: a fresh, aligned copy
         dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
         delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
-        which = kernel.bwd_variant(q)
         kernel.launch_flash_attention_bwd(q, k, v, o, lse, do, delta, dq, dk, dv, variant=which,
                                           forward=ctx.forward, **ctx.kw)
         launches[FLASH_ATTENTION_BWD] += 1

@@ -7,7 +7,9 @@ D contiguous, 16-byte aligned bases and positive (B, S, H) strides that are
 multiples of 8 elements (a dim of size 1 needs none); every other bf16 input
 goes to the mma.sync kernel (``mma``), f32 to the SIMT kernel (``simt``).
 G = Hq / Hkv never changes the kernel, only how the sm90 kernel pairs its
-warpgroups.  The launch itself needs the card (``test_torch_kernels_cuda``).
+warpgroups.  The backward kernel follows the forward's (``bwd_variant``):
+``bwd_sm90`` exactly after ``sm90``.  The launch itself needs the card
+(``test_torch_kernels_cuda``, ``test_torch_train_cuda``).
 """
 import pytest
 import torch
@@ -77,18 +79,46 @@ def test_launching_a_backward_kernel_of_another_dtype_raises():
     lse = torch.zeros((q.shape[0], q.shape[2], q.shape[1]))
     for ts, name, forward in ((f, "bwd_mma", "simt"), ((q, k, v), "bwd_simt", "sm90"),
                               (f, "mma", "simt"), ((q, k, v), "bwd_mma", "simt"),
-                              (f, "bwd_simt", "mma")):
+                              (f, "bwd_simt", "mma"), ((q, k, v), "bwd_sm90", "mma"),
+                              (f, "bwd_sm90", "simt"), (f, "bwd_sm90", "sm90")):
         with pytest.raises(ValueError, match="no backward kernel"):
             kernel.launch_flash_attention_bwd(*ts, ts[0], lse, ts[0], lse.clone(),
                                               *(t.clone() for t in ts), causal=True,
                                               window=None, cap=None, q_offset=0, variant=name,
                                               forward=forward)
-    assert kernel.bwd_variant(q) == "bwd_mma" and kernel.bwd_variant(f[0]) == "bwd_simt"
+
+
+def test_backward_kernel_follows_the_forward_kernel():
+    """``bwd_sm90`` exactly after the ``sm90`` forward, ``bwd_mma`` after the
+    ``mma`` forward (D = 20; rows padded past D), ``bwd_simt`` for f32."""
+    q, k, v = _qkv()
+    assert kernel.variant(q, k, v) == "sm90" and kernel.bwd_variant(q, "sm90") == "bwd_sm90"
+    narrow = _qkv(d=20)
+    assert kernel.variant(*narrow) == "mma" and kernel.bwd_variant(narrow[0], "mma") == "bwd_mma"
+    padded = [torch.zeros(t.shape[:3] + (132,), dtype=BF16)[..., :128] for t in (q, k, v)]
+    assert kernel.variant(*padded) == "mma" and kernel.bwd_variant(padded[0], "mma") == "bwd_mma"
+    f = [t.float() for t in (q, k, v)]
+    assert kernel.variant(*f) == "simt" and kernel.bwd_variant(f[0], "simt") == "bwd_simt"
+
+
+def test_bwd_sm90_refuses_a_cotangent_tma_refuses():
+    """The launcher raises where TMA would refuse the cotangent (``ops``
+    copies such a cotangent first)."""
+    q, k, v = _qkv()
+    lse = torch.zeros((q.shape[0], q.shape[2], q.shape[1]))
+    buf = torch.zeros(q.numel() + 4, dtype=BF16)
+    do = buf[4:].view(q.shape)
+    assert do.is_contiguous() and not kernel.tma_ready(do) and kernel.tma_ready(q)
+    with pytest.raises(ValueError, match="as TMA does"):
+        kernel.launch_flash_attention_bwd(q, k, v, q, lse, do, lse.clone(), q.clone(), k.clone(),
+                                          v.clone(), causal=True, window=None, cap=None,
+                                          q_offset=0, variant="bwd_sm90", forward="sm90")
 
 
 def test_every_kernel_has_its_own_counter():
     assert set(ops.COUNTERS) == set(kernel.VARIANTS) == {"sm90", "mma", "simt"}
-    assert set(ops.BWD_COUNTERS) == set(kernel.BWD_VARIANTS) == {"bwd_mma", "bwd_simt"}
+    assert set(ops.BWD_COUNTERS) == set(kernel.BWD_VARIANTS) == {"bwd_sm90", "bwd_mma",
+                                                                 "bwd_simt"}
     assert set(ops.launches) == {ops.FLASH_ATTENTION, *ops.COUNTERS.values(),
                                  ops.FLASH_ATTENTION_BWD, *ops.BWD_COUNTERS.values()}
     for name in ops.launches:

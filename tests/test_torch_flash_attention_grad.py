@@ -98,7 +98,9 @@ def cpu_launchers(monkeypatch):
     """The card's autograd Function with its launchers replaced by the plain
     versions: the forward writes o and the row log-sum-exp, the backward
     Dᵢ, dq, dk and dv into the tensors ``ops`` allocated; the backward is
-    told which forward kernel wrote its log-sum-exp."""
+    told which forward kernel wrote its log-sum-exp, runs the backward
+    kernel ``bwd_variant`` names for it (``bwd_sm90`` after ``sm90``) and,
+    on ``bwd_sm90``, gets a cotangent TMA takes."""
     forwards = []
 
     def launch(q, k, v, o, *, causal, window, cap, q_offset, variant, lse=None):
@@ -114,6 +116,9 @@ def cpu_launchers(monkeypatch):
                    variant, forward):
         assert kernel.BWD_DTYPES[variant] == q.dtype and lse.dtype == torch.float32
         assert forward == forwards[-1] == kernel.variant(q, k, v)
+        assert variant == kernel.bwd_variant(q, forward)
+        assert (variant == "bwd_sm90") == (forward == "sm90")
+        assert variant != "bwd_sm90" or kernel.tma_ready(do)
         assert all(t.is_contiguous() for t in (do, dq, dk, dv, delta))
         delta.copy_((o.float() * do.float()).sum(-1).transpose(1, 2))
         for out, g in zip((dq, dk, dv), ref.flash_attention_bwd_ref(
@@ -237,8 +242,8 @@ def test_gradients_match_the_reference_bf16(case, how, cpu_launchers):
         got = _plain_bwd(q, k, v, w, kw, dtype=torch.bfloat16)
     else:
         got = _autograd(_function(kw), q, k, v, w, dtype=torch.bfloat16)
-        forward = "mma" if d % 8 else "sm90"
-        assert ops.launches[ops.COUNTERS[forward]] == ops.launches[ops.BWD_COUNTERS["bwd_mma"]] == 1
+        forward, backward = ("mma", "bwd_mma") if d % 8 else ("sm90", "bwd_sm90")
+        assert ops.launches[ops.COUNTERS[forward]] == ops.launches[ops.BWD_COUNTERS[backward]] == 1
     _close(got, want, BF16_TOL)
 
 
@@ -282,3 +287,26 @@ def test_function_forward_saves_the_log_sum_exp_and_backward_casts_the_cotangent
     o.backward(do)
     assert all(t.grad is not None and t.grad.dtype == torch.bfloat16 for t in ts)
     assert ops.launches[ops.FLASH_ATTENTION] == 1 and ops.launches[ops.FLASH_ATTENTION_BWD] == 1
+
+
+@pytest.mark.parametrize("offset", [0, 1, 4])
+def test_function_copies_a_cotangent_tma_refuses_for_bwd_sm90(offset, cpu_launchers):
+    """A contiguous cotangent whose base lies ``offset`` bf16 elements into
+    a larger buffer (not 16-byte aligned unless 0 or 8) reaches the
+    ``bwd_sm90`` launcher as an aligned copy of the same values; the
+    gradients equal those of an aligned cotangent."""
+    q, k, v, w = _rand(23, 1, 12, 12, 4, 2, 16)
+    grads = []
+    for off in (0, offset):
+        ts = [torch.from_numpy(a).to(torch.bfloat16).requires_grad_(True) for a in (q, k, v)]
+        o = _function(dict(causal=True, cap=30.0))(*ts)
+        buf = torch.zeros(w.size + off, dtype=torch.bfloat16)
+        do = buf[off:].view(w.shape)
+        do.copy_(torch.from_numpy(w))
+        assert do.is_contiguous() and (do.data_ptr() % 16 == 0) == (off % 8 == 0)
+        ops.reset_launches()
+        o.backward(do)
+        assert ops.launches[ops.BWD_COUNTERS["bwd_sm90"]] == 1
+        grads.append([t.grad for t in ts])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)

@@ -100,13 +100,18 @@ def test_b4_backward_matches_the_plain_backward(cuda, b, f, v, d, mh):
 
 
 # (b, sq, skv, hq, hkv, d, kwargs): ragged lengths, G = 1, 2, 8, D = 16..256, causal
-# on and off, window, softcap, q_offset (rows with no valid key at q_offset < 0)
+# on and off, window, softcap, q_offset (rows with no valid key at q_offset < 0); the
+# last four at D = 192 and 256 with Sq and Skv no multiples of 32 or 64, G = 1 and 8
 B6_BWD_CASES = [
     (1, 200, 200, 16, 8, 256, dict(causal=True, window=64, cap=50.0)),
     (2, 77, 131, 4, 2, 16, dict(causal=True, q_offset=-5)),
     (1, 130, 97, 8, 1, 64, dict(causal=False, cap=30.0)),
     (1, 150, 150, 8, 8, 128, dict(causal=True, window=40, q_offset=-20)),
     (1, 33, 70, 2, 2, 40, dict(causal=False, window=20, q_offset=60)),
+    (1, 201, 173, 8, 1, 192, dict(causal=True, window=50, cap=50.0, q_offset=-20)),
+    (2, 97, 150, 4, 4, 192, dict(causal=True, cap=30.0, q_offset=-9)),
+    (1, 150, 90, 16, 2, 256, dict(causal=True, window=70, cap=50.0, q_offset=-40)),
+    (1, 171, 229, 3, 3, 256, dict(causal=False, window=45, q_offset=30)),
 ]
 # gradients against the plain backward (f32; from bf16 inputs for bf16), relative to
 # the largest |gradient|: f32 sums of up to Sq·G terms in another order; bf16 P and dS
@@ -133,7 +138,7 @@ def test_b6_backward_matches_the_plain_backward(cuda, b, sq, skv, hq, hkv, d, kw
         torch.cuda.synchronize()
         assert fa_ops.launches[fa_ops.FLASH_ATTENTION_BWD] == 1
         assert fa_ops.launches[fa_ops.BWD_COUNTERS["bwd_simt" if dtype == torch.float32
-                                                    else "bwd_mma"]] == 1
+                                                    else "bwd_sm90"]] == 1
         got.append([t.grad for t in ts])
     tol = B6_BWD_TOL[dtype]
     for g, again, w in zip(*got, want):
