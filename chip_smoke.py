@@ -184,7 +184,32 @@ none of whose failures is caught:
    ``OK``); (iv) after 3i, the training CLI for ``gemma2-9b`` beside 3j
    (c)'s.  Phase 2 holds B6's backward to the plain backward over ragged
    shapes (``B6_BWD_CASES``), bitwise run to run, and the forward's
-   log-sum-exp to the plain one.
+   log-sum-exp to the plain one;
+3l. the MoE LMs after 3k (``moe_phase``), at their published widths (48
+   query and 8 KV heads of 128: G = 6, no softcap), bf16 random weights
+   drawn on the card: (a) ``mixtral-8x22b`` (8 of 56 layers, window 4,096)
+   and ``dbrx-132b`` (4 of 40, global) serve ``prefill_8k`` (1 × 8,192;
+   every layer's B6 call held to the plain chunked path), Mixtral also
+   ``generate`` through ``serve_demo``, each model freed before the next;
+   (b) ``mixtral-8x22b`` training at 1 layer, train_4k's 4,096 tokens,
+   AdamW with f32 moments, remat on, ``MOE_TRAIN_STEPS`` steps; (c) one
+   full-width f32 Mixtral layer at ``MOE_CHECK_SEQ`` tokens through B6 and
+   through the plain chunked attention: the share of (token, choice) pairs
+   whose expert and slot agree, the drop counts equal, the outputs and
+   step-0 loss and gradients within ``MOE_TOL`` of the plain path given
+   B6's routing (``given_choices``).  B6's launches of (a) and (b) are
+   booked under the ``moe`` path; phase 2 holds B6 forward and backward at
+   the MoE layers' shapes and ragged G = 6 ones, and phase 5's lines at
+   Mixtral's local and DBRX's global prefill layer and Mixtral's train_4k
+   backward have SDPA beside them computing the same function;
+3m. the science models' training after 3l (``science_phase``) at their
+   published widths: ``dimenet`` and ``mace`` (f32) on ``molecule``'s
+   batch (128 molecules of 30 atoms and 64 bonds, padded to 4,096 atoms
+   and 8,192 edges), step 0's loss and gradients within ``SCIENCE_TOL`` of
+   the CPU port; ``graphcast`` (bf16, remat) at ``minibatch_lg``'s sizes
+   through ``graphcast_sizes`` (180,224 grid and 45,056 mesh nodes), step
+   0 within ``GC_BF16_TOL`` of its f32 run on the card;
+   ``SCIENCE_STEPS`` AdamW steps each.  They launch no kernel of B1–B6.
 
 Kernel launch counts are zeroed right before each path and read right
 after it; a kernel of the path that did not launch fails the run.  The
@@ -322,6 +347,26 @@ LM_GRAD_TOL = 1e-4
 # examples/train_lm_torch.py: lm100m, a failure at step 31 (a restart from the checkpoint
 # at 20), the restart bitwise the unbroken run, the loss improving over the 60 steps
 LM_EXAMPLE_ARGS = ("--steps", "60", "--ckpt-every", "20", "--check-restart")
+# MoE LMs (phase 3l) at their published widths, depth cut to fit one card: serving
+# LM_REQUESTS["prefill_8k"] on mixtral-8x22b's first 8 of 56 layers (2.50 G parameters a
+# layer, ~40.9 GB with embedding and head) and dbrx-132b's first 4 of 40 (3.26 G a layer,
+# ~28.6 GB), each freed before the next; training mixtral-8x22b at 1 layer (~2.9 G
+# parameters, ~35 GB with AdamW's f32 moments) at train_4k's 4,096 tokens
+MOE_SERVE_LAYERS = {"mixtral-8x22b": 8, "dbrx-132b": 4}
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 1, 3
+# one full-width f32 mixtral layer at MOE_CHECK_SEQ tokens through B6 and through the plain
+# chunked attention given B6's routing: outputs, loss and gradients (rtol, and atol times
+# each leaf's largest |value|) within MOE_TOL (f32 sums in other orders)
+MOE_CHECK_SEQ, MOE_TOL = 512, 1e-4
+# science models (phase 3m): SCIENCE_STEPS AdamW steps each; dimenet and mace (f32) held
+# to the CPU port at SCIENCE_TOL (f32 sums in other orders); graphcast (bf16) held to its
+# f32 run on the card: loss within GC_BF16_LOSS_TOL, gradients within GC_BF16_TOL of each
+# leaf's largest |gradient| (bf16 activations over 16 layers: ~0.02 of it at 2,048 and
+# 4,096 nodes on the CPU; the losses 1e-4 apart)
+SCIENCE_STEPS = 3
+SCIENCE_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10_000)
+SCIENCE_TOL = 1e-4
+GC_BF16_TOL, GC_BF16_LOSS_TOL = 1e-1, 1e-2
 
 
 def check(cond: bool, what: str) -> None:
@@ -801,6 +846,9 @@ def flash_attention_checks(device) -> dict:
     """B6 against its plain version: ``prefill_8k``'s layer shapes (q (1,
     8192, 16, 256), k and v (1, 8192, 8, 256), bf16, cap 50) with the local
     window and without, on scores at the cap's scale (``QK_SCALE``); the
+    MoE LMs' (q (1, 8192, 48, 128), k and v (1, 8192, 8, 128), no cap;
+    mixtral's window 4,096 and dbrx's global layer) and ragged G = 6 cases
+    with q_offset ≠ 0 in bf16 and f32; the
     wgmma/TMA kernel's own cases (interior and edge tiles, window and none,
     causal off, G = 1, 2, 4 and odd, D = 8..256, ragged Sq and Skv,
     q_offset, strided H, rows with no valid key); bf16 inputs TMA does not
@@ -835,7 +883,14 @@ def flash_attention_checks(device) -> dict:
              ((1, 100, 130, 4, 4, 8), bf16, small, dict(causal=True)),
              ((1, 200, 200, 4, 2, 192), bf16, small, dict(causal=True, window=100)),
              # bf16 the TMA kernel does not take: D % 8 != 0 (the mma.sync kernel)
-             ((1, 90, 120, 4, 2, 36), bf16, small, dict(causal=True, window=50, cap=30.0))]
+             ((1, 90, 120, 4, 2, 36), bf16, small, dict(causal=True, window=50, cap=30.0)),
+             # the MoE LMs' layers, no softcap: G = 6, D = 128 (mixtral's window, dbrx's
+             # global layer), and ragged G = 6 with q_offset != 0
+             ((1, 8192, 8192, 48, 8, 128), bf16, big, dict(causal=True, window=4096)),
+             ((1, 8192, 8192, 48, 8, 128), bf16, big, dict(causal=True)),
+             ((1, 200, 333, 12, 2, 128), bf16, small, dict(causal=True, window=150, q_offset=50)),
+             ((1, 200, 333, 12, 2, 128), f32, small, dict(causal=True, window=150, q_offset=50)),
+             ((2, 97, 64, 6, 1, 128), bf16, big, dict(causal=True, q_offset=-20))]
     masked = dict(causal=True, window=64, q_offset=400)  # q_offset + i - 63 > Skv - 1 = 255
     shares = {}
     cases += [((1, 128, 256, 16, 8, 256), dt, small, masked) for dt in (bf16, f32)]
@@ -877,7 +932,7 @@ def flash_attention_case(q, k, v, kw: dict, scale: float, shares: dict, expect: 
     check(ops.launches[ops.COUNTERS[name]] == ops.launches[ops.FLASH_ATTENTION] == 1,
           f"{what}: one launch of the {name} kernel")
     wide = q.dtype == torch.float32 and scale > 1  # the plain version in float64 (QK_SCALE)
-    want = ref.flash_attention_ref(*(t.double() if wide else t for t in (q, k, v)), **kw)
+    want = plain_by_kv_head(*(t.double() if wide else t for t in (q, k, v)), kw)[0]
     attention_close(got, want, what)
     tol = B6_TOL[str(q.dtype).split(".")[-1]]
     shares[what] = {"kernel": tolerance_share(got, want, tol)}
@@ -891,6 +946,33 @@ def flash_attention_case(q, k, v, kw: dict, scale: float, shares: dict, expect: 
         uncapped = ops.flash_attention(q, k, v, **{**kw, "cap": None})
         check(not attention_within(uncapped, want), f"{what}: cap=None fails the check")
     ops.reset_launches()
+
+
+def plain_by_kv_head(q, k, v, kw: dict, do=None):
+    """B6's plain forward (o, lse) and, given a cotangent ``do``, its plain
+    backward (dq, dk, dv), one KV head's group of query heads at a time
+    (each head's attention is its own: the same function as over all heads
+    at once, with a group's (Sq, Skv) intermediates at a time in memory:
+    48 heads at 8,192 tokens would hold ~13 GB a score tensor)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ref
+
+    hq, hkv = q.shape[2], k.shape[2]
+    g = hq // hkv
+    outs, lses, grads = [], [], []
+    for h in range(hkv):
+        qh, kh, vh = q[:, :, h * g:(h + 1) * g], k[:, :, h:h + 1], v[:, :, h:h + 1]
+        o, lse = ref.flash_attention_ref(qh, kh, vh, return_lse=True, **kw)
+        outs.append(o)
+        lses.append(lse)
+        if do is not None:
+            grads.append(ref.flash_attention_bwd_ref(qh, kh, vh, o, lse,
+                                                     do[:, :, h * g:(h + 1) * g], **kw))
+    o, lse = torch.cat(outs, dim=2), torch.cat(lses, dim=1)
+    if do is None:
+        return o, lse
+    return o, lse, tuple(torch.cat(parts, dim=2) for parts in zip(*grads))
 
 
 def grads_within(got, want, tol: float):
@@ -932,6 +1014,13 @@ B6_BWD_CASES = [
                                                        pad=4)),
     ((1, 130, 130, 8, 4, 256), 0.3, ("bfloat16",), dict(causal=True, window=40, cap=50.0,
                                                         pad=4)),
+    # the MoE LMs' layers, no softcap, G = 6, D = 128: mixtral's (window 4,096) and dbrx's
+    # (global) at 8,192 tokens, and ragged G = 6 with q_offset != 0
+    ((1, 8192, 8192, 48, 8, 128), 0.3, ("bfloat16",), dict(causal=True, window=4096)),
+    ((1, 8192, 8192, 48, 8, 128), 0.3, ("bfloat16",), dict(causal=True)),
+    ((1, 333, 200, 12, 2, 128), 1.0, ("bfloat16", "float32"), dict(causal=True, q_offset=-20)),
+    ((1, 150, 250, 6, 1, 128), 1.0, ("bfloat16", "float32"), dict(causal=True, window=70,
+                                                                 q_offset=100)),
 ]
 
 
@@ -985,8 +1074,7 @@ def flash_attention_bwd_checks(device) -> dict:
                   f"{what}: bitwise run to run")
             wide = torch.float64 if dtype == torch.float32 else torch.float32
             qw, kw_, vw = (t.to(wide) for t in (q, k, v))
-            o, lse = ref.flash_attention_ref(qw, kw_, vw, return_lse=True, **kw)
-            want = ref.flash_attention_bwd_ref(qw, kw_, vw, o, lse, do.to(wide), **kw)
+            o, lse, want = plain_by_kv_head(qw, kw_, vw, kw, do.to(wide))
             del qw, kw_, vw, o
             share = 0.0
             for g, w, part in zip(runs[0], want, ("dq", "dk", "dv")):
@@ -2857,7 +2945,8 @@ def context_phase(pg, seed: int, device: str, sync) -> dict:
 # ---------------------------------------------------------------- phase 3j: training
 def grads_of(loss, params, batch):
     """(loss, {leaf path: gradient}) of ``loss(params, batch)`` by autograd,
-    the params left as they are."""
+    the params left as they are; a leaf the loss does not reach gets 0 (as
+    the reference's gradient and the training step give it: MACE's l = 1, 2 mixers)."""
     import torch
 
     from repro_torch.optim.tree import flatten_with_paths, unflatten
@@ -2865,8 +2954,9 @@ def grads_of(loss, params, batch):
     pairs, spec = flatten_with_paths(params)
     flat = [p.detach().requires_grad_(True) for _, p in pairs]
     value = loss(unflatten(spec, flat), batch)
-    grads = torch.autograd.grad(value, flat)
-    return value.detach(), {name: g for (name, _), g in zip(pairs, grads)}
+    grads = torch.autograd.grad(value, flat, allow_unused=True)
+    return value.detach(), {name: torch.zeros_like(p) if g is None else g
+                            for (name, _), p, g in zip(pairs, flat, grads)}
 
 
 def train_gnn_phase(pg, pool, feats, labels, seed: int, device: str, sync) -> dict:
@@ -3356,6 +3446,425 @@ def train_lm_phase(seed: int, device: str, sync) -> dict:
     return out
 
 
+# ------------------------------------------------- phase 3l: the MoE LMs
+@contextlib.contextmanager
+def recording_routes(routes: list):
+    """Every MoE layer's routing (``nn/moe.route``'s ``Routing``) inside the
+    block is appended to ``routes``, in call order."""
+    from repro_torch.nn import moe
+
+    saved = moe.route
+
+    def route(*args, **kw):
+        routes.append(saved(*args, **kw))
+        return routes[-1]
+
+    moe.route = route
+    try:
+        yield
+    finally:
+        moe.route = saved
+
+
+@contextlib.contextmanager
+def given_choices(idx: list):
+    """Inside the block the MoE layers take the experts ``idx`` (one (G,
+    Tg, k) tensor a layer, in call order, again for each pass) in place of
+    their own top k; gate values are still read from each layer's own
+    logits (or probabilities) at those experts, so gradients reach the
+    router.  A check (the plain path given another run's routing), not a
+    path of the package."""
+    import torch
+
+    from repro_torch.nn import moe
+
+    saved, calls = moe._top_k, [0]
+
+    def top_k(x, k):
+        i = idx[calls[0] % len(idx)]
+        calls[0] += 1
+        check(tuple(i.shape) == tuple(x.shape[:-1]) + (k,), "given_choices: the layer's shape")
+        return torch.gather(x, -1, i), i
+
+    moe._top_k = top_k
+    try:
+        yield
+    finally:
+        moe._top_k = saved
+
+
+def moe_serve(arch: str, n_layers: int, seed: int, device: str, sync) -> dict:
+    """3l serving of one MoE LM (``moe_phase``): published widths, the first
+    ``n_layers`` layers, bf16 random weights drawn on the card; prefill_8k
+    (a warm run, 3 timed) with every B6 call held to the plain chunked path
+    on its inputs, and for Mixtral ``generate`` through ``serve_demo``.
+    Returns the results and the first B6 call's inputs (for phase 5)."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    full = device == "cuda"
+    mod = get_arch(arch)
+    cfg = (dataclasses.replace(mod.full_config(), n_layers=n_layers) if full else
+           dataclasses.replace(mod.smoke_config(), dtype=torch.bfloat16, attn_impl="auto"))
+    b, s = LM_REQUESTS["prefill_8k"] if full else (1, 64)
+    out = {"config": cfg.name, "n_layers": cfg.n_layers, "n_params": cfg.n_params,
+           "reduced": {"n_layers": f"{mod.full_config().n_layers} -> {cfg.n_layers}",
+                       "batch": "32 -> 1", "seq": "32,768 -> 8,192"}}
+    if full:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(torch.Generator(device=device).manual_seed(seed + 30), cfg,
+                           device=device)
+    sync()
+    out["init_s"] = time.perf_counter() - t0
+    out["weights_gb"] = sum(t.numel() * t.element_size() for _, t in T._flatten(params, "")) / 1e9
+    toks = lm_batch(0, batch=b, seq=s, vocab=cfg.vocab, seed=seed + 30, device="cpu")["tokens"]
+
+    def request():  # a prompt from the host, the last logits back to it
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            lg = T.prefill(params, toks.to(device), cfg).cpu()
+        sync()
+        return lg, (time.perf_counter() - t0) * 1e3
+
+    ops.reset_launches()
+    routes = []
+    with counting_flash(1) as (calls, by_layer), recording_routes(routes):
+        runs = [request() for _ in range(4)]
+    n, n_sm90 = ops.launches[ops.FLASH_ATTENTION], ops.launches[ops.COUNTERS["sm90"]]
+    ops.reset_launches()
+    check(sum(by_layer.values()) == n, f"3l {arch}: B6 launches {n} = calls by layer {by_layer}")
+    if full:
+        check(n == n_sm90 == len(runs) * cfg.n_layers,
+              f"3l {arch}: {n} B6 launches ({n_sm90} on the wgmma/TMA kernel) for {len(runs)} "
+              f"requests of {cfg.n_layers} layers")
+    check(len(routes) == len(runs) * cfg.n_layers, f"3l {arch}: one routing a layer")
+    lg = runs[-1][0]
+    check(lg.shape == (b, 1, cfg.vocab) and bool(torch.isfinite(lg.float()).all()),
+          f"3l {arch}: logits shape and finite")
+    med = statistics.median(ms for _, ms in runs[1:])
+    r0 = routes[0]
+    out["prefill_8k"] = {"median_ms": med, "runs_ms": [ms for _, ms in runs[1:]], "batch": b,
+                         "seq": s, "tokens_per_s": b * s / med * 1e3, "b6_launches": n,
+                         "b6_sm90_launches": n_sm90, "b6_launches_by_layer": dict(by_layer),
+                         "capacity": r0.capacity,
+                         "dropped_pairs_layer0": int(r0.dropped),
+                         "pairs": int(r0.keep.numel()),
+                         "tokens_by_expert_layer0": torch.bincount(
+                             r0.idx.flatten(), minlength=cfg.n_experts).tolist()}
+    # every layer's B6 output against the plain chunked path on that layer's inputs
+    layer_errs = []
+    with torch.inference_mode(), checking_flash(layer_errs):
+        T.prefill(params, toks.to(device), cfg)
+    if full:
+        check(len(layer_errs) == cfg.n_layers, f"3l {arch}: {len(layer_errs)} layers held")
+    out["prefill_8k"]["layer_max_abs_err"] = max(layer_errs, default=0.0)
+    n_checked = ops.launches[ops.COUNTERS["sm90"]]
+    ops.reset_launches()
+    if arch == "mixtral-8x22b":  # generate: decode in plain torch over the ring buffers
+        res = serve.serve_demo(arch, seed=seed, device=device, cfg=cfg, params=params,
+                               **LM_GENERATE)
+        check(ops.launches[ops.FLASH_ATTENTION] == 0, "3l generate: decode launches no B6")
+        check(bool(torch.isfinite(res["logits"].float()).all()), "3l generate: logits finite")
+        steps = res["step_ms"]
+        out["generate"] = {"median_step_ms": statistics.median(steps[1:]), "steps": len(steps),
+                           "first_step_ms": steps[0], **LM_GENERATE,
+                           "tokens_per_s": LM_GENERATE["batch"] / statistics.median(steps[1:])
+                           * 1e3}
+        del res
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if full else None
+    out["launches"] = {"sm90": n_sm90 if full else 0, "check_sm90": n_checked}
+    del params, routes, runs
+    return out, calls[0] if calls else None
+
+
+def moe_phase(seed: int, device: str, sync) -> dict:
+    """Phase 3l (module docstring): the MoE LMs at their published widths.
+    (a) serving (``moe_serve``) mixtral-8x22b and dbrx-132b, each freed
+    before the next; (b) mixtral-8x22b training, ``MOE_TRAIN_LAYERS`` bf16
+    layer at train_4k's 4,096 tokens, AdamW with f32 moments, remat on,
+    ``MOE_TRAIN_STEPS`` steps on one batch (split, peak memory, B6 launches
+    by kernel); (c) one full-width f32 layer at ``MOE_CHECK_SEQ`` tokens run
+    through B6 and through the plain chunked attention: the share of
+    (token, choice) pairs whose expert and slot agree, the drop counts
+    equal, and the outputs and step-0 loss and gradients within
+    ``MOE_TOL`` of the plain path given B6's routing (``given_choices``).
+    Returns the results, the B6 launches of (a) and (b) by kernel and model
+    (the ``moe`` path), and the first B6 call of each model's prefill."""
+    import torch
+
+    from repro_torch.configs import mixtral_8x22b
+    from repro_torch.configs.common import LM_SHAPES
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, init_state
+
+    t_phase = time.perf_counter()
+    full = device == "cuda"
+    out, calls = {}, {}
+    for arch, n_layers in MOE_SERVE_LAYERS.items():
+        out[arch], calls[arch] = moe_serve(arch, n_layers, seed, device, sync)
+    launches = {"sm90": {a: out[a]["launches"]["sm90"] for a in MOE_SERVE_LAYERS},
+                "bwd_sm90": 0}
+
+    # (b) training: one bf16 layer at train_4k's length, remat on
+    base = (mixtral_8x22b.full_config() if full else
+            dataclasses.replace(mixtral_8x22b.smoke_config(), dtype=torch.bfloat16,
+                                attn_impl="auto"))
+    cfg = dataclasses.replace(base, n_layers=MOE_TRAIN_LAYERS, remat=True)
+    seq = LM_SHAPES["train_4k"]["seq_len"] if full else 48
+    if full:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(torch.Generator(device=device).manual_seed(seed + 31), cfg,
+                           device=device)
+    batch = lm_batch(0, batch=1, seq=seq, vocab=cfg.vocab, seed=seed + 31, device=device)
+    step_fn = make_train_step(lambda p, b: T.loss_fn(p, b["tokens"], b["labels"], cfg),
+                              lambda step: batch, AdamWConfig(**LM_TRAIN_OPT), sync=sync)
+    state = (params, init_state(params))
+    del params
+    ops.reset_launches()
+    logs = []
+    for step in range(MOE_TRAIN_STEPS):
+        state, m = step_fn(state, step)
+        logs.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                     **m.get("ms", {})})
+    n = {name: ops.launches[c] for name, c in {**ops.COUNTERS, **ops.BWD_COUNTERS}.items()}
+    ops.reset_launches()
+    if full:  # remat: the layer's forward twice a step (the recompute), its backward once
+        want = {name: 0 for name in n}
+        want.update(sm90=2 * cfg.n_layers * MOE_TRAIN_STEPS,
+                    bwd_sm90=cfg.n_layers * MOE_TRAIN_STEPS)
+        check(n == want, f"3l (b): B6 launched {n}, want {want}")
+    check(all(np.isfinite(x["loss"]) for x in logs) and logs[-1]["loss"] < logs[0]["loss"],
+          f"3l (b): the loss falls on a fixed batch: {[x['loss'] for x in logs]}")
+    launches["sm90"]["mixtral-8x22b"] += n["sm90"]
+    launches["bwd_sm90"] += n["bwd_sm90"]
+    out["train"] = {"config": cfg.name, "n_layers": cfg.n_layers, "seq": seq,
+                    "n_params": cfg.n_params, "steps": logs, "b6_launches": n,
+                    "reduced": {"n_layers": f"{base.n_layers} -> {cfg.n_layers}",
+                                "batch": f"{LM_SHAPES['train_4k']['global_batch']} -> 1"},
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if full else None}
+    if full:
+        out["train"]["step_ms"] = {k: statistics.median(x[k] for x in logs[1:])
+                                   for k in ("batch", "forward", "backward", "update")}
+    del state, batch
+
+    # (c) one full-width f32 layer: B6 against the plain path given B6's routing
+    if full:
+        check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 is off for float32 matmuls")
+        torch.cuda.empty_cache()
+    cfg1 = dataclasses.replace(base, n_layers=1, dtype=torch.float32, remat=False)
+    p1 = T.init_params(torch.Generator(device=device).manual_seed(seed + 32), cfg1,
+                       device=device)
+    b1 = lm_batch(0, batch=1, seq=MOE_CHECK_SEQ if full else 40, vocab=cfg1.vocab,
+                  seed=seed + 32, device=device)
+
+    def loss1(p, b):
+        return T.loss_fn(p, b["tokens"], b["labels"], cfg1)
+
+    def hidden():
+        with torch.no_grad():
+            return T.forward(p1, b1["tokens"], cfg1)[0]
+
+    ops.reset_launches()
+    r_b6, r_plain = [], []
+    with recording_routes(r_b6):
+        h_b6 = hidden()
+        got_l, got = grads_of(loss1, p1, b1)
+    n_check = {name: ops.launches[c] for name, c in {**ops.COUNTERS, **ops.BWD_COUNTERS}.items()
+               if ops.launches[c]}
+    ops.reset_launches()
+    with plain_attention("chunked"):
+        with recording_routes(r_plain):
+            hidden()
+        with given_choices([r_b6[0].idx]):
+            h_plain = hidden()
+            want_l, want = grads_of(loss1, p1, b1)
+    check(ops.launches[ops.FLASH_ATTENTION] == 0, "3l (c): the plain path launches no B6")
+    check(len(r_b6) == 2 and r_b6[0].idx.equal(r_b6[1].idx) and r_b6[0].pos.equal(r_b6[1].pos),
+          "3l (c): the forward and the gradient's forward route alike")
+    ra, rp = r_b6[0], r_plain[0]
+    same = (ra.idx.transpose(1, 2).reshape(ra.pos.shape) == rp.idx.transpose(1, 2).reshape(
+        rp.pos.shape)) & (ra.pos == rp.pos)
+    check(int(ra.dropped) == int(rp.dropped),
+          f"3l (c): drop counts equal: {int(ra.dropped)} (B6) and {int(rp.dropped)} (plain)")
+    err = check_close(h_b6, h_plain.cpu(), MOE_TOL, "3l (c): f32 layer outputs",
+                      "the plain path's given B6's routing")
+    check(bool(torch.isclose(got_l, want_l, rtol=MOE_TOL, atol=0)),
+          f"3l (c): step-0 loss {float(got_l)} against the plain path's {float(want_l)}")
+    shares = {}
+    for name, w in want.items():
+        ok, shares[name] = grads_within(got[name], w, MOE_TOL)
+        check(ok, f"3l (c): gradient {name} within {MOE_TOL} of the plain path's "
+                  f"(share {shares[name]:.3g})")
+    worst = max(shares, key=shares.get)
+    out["grad_check"] = {"seq": int(b1["tokens"].shape[1]), "n_layers": 1, "dtype": "float32",
+                         "routing_agreement": float(same.float().mean()),
+                         "pairs": int(same.numel()), "capacity": ra.capacity,
+                         "dropped": int(ra.dropped), "hidden_max_abs_err": err,
+                         "loss": float(got_l), "loss_plain": float(want_l),
+                         "largest_share": shares[worst], "largest_share_leaf": worst,
+                         "b6_launches": n_check}
+    del p1, got, want
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["b6_calls"] = calls
+    return out
+
+
+# --------------------------------------------- phase 3m: the science models
+def molecule_batch(seed: int, device, n_species: int = 16):
+    """``GNN_SHAPES["molecule"]``'s batch: 128 molecules of 30 atoms and 64
+    bonds each (drawn within the molecule, sorted by source), padded to 512
+    (4,096 atoms, the last 256 masked out; 8,192 edges), DimeNet's triplets
+    capped at ``TRIPLET_CAP_FACTOR`` × 8,192, positions normal, species
+    uniform, one energy label a molecule; from ``seed`` (numpy)."""
+    import torch
+
+    from repro_torch.configs.common import GNN_SHAPES, TRIPLET_CAP_FACTOR, _gnn_sizes
+    from repro_torch.data.graph import build_triplets
+    from repro_torch.models.gnn_common import GraphBatch
+
+    sh = GNN_SHAPES["molecule"]
+    n_pad, e_pad, _ = _gnn_sizes("molecule")
+    m, atoms, bonds = sh["batch"], sh["n_nodes"], sh["n_edges"]
+    rng = np.random.default_rng(seed)
+    off = np.repeat(np.arange(m) * atoms, bonds)
+    src = (np.sort(rng.integers(0, atoms, (m, bonds)), axis=1).ravel() + off).astype(np.int32)
+    dst = (rng.integers(0, atoms, (m, bonds)).ravel() + off).astype(np.int32)
+    n_real, e_real = m * atoms, m * bonds
+    src = np.concatenate([src, np.zeros(e_pad - e_real, np.int32)])
+    dst = np.concatenate([dst, np.zeros(e_pad - e_real, np.int32)])
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    gid = np.minimum(np.arange(n_pad) // atoms, m - 1).astype(np.int32)
+    return GraphBatch(
+        x=None, pos=t(rng.standard_normal((n_pad, 3), np.float32)),
+        species=t(rng.integers(0, n_species, n_pad, dtype=np.int32)),
+        edge_src=t(src), edge_dst=t(dst),
+        edge_attr=t(build_triplets(src[:e_real], dst[:e_real], TRIPLET_CAP_FACTOR * e_pad)),
+        edge_mask=t(np.arange(e_pad) < e_real), node_mask=t(np.arange(n_pad) < n_real),
+        labels=t(rng.standard_normal(m, np.float32)), graph_ids=t(gid),
+        n_nodes=n_pad, n_edges=e_pad, n_graphs=m)
+
+
+def kernel_launch_counts() -> dict:
+    """Every kernel counter of the port (B1–B6), by name."""
+    from repro_torch.kernels.bitmap_query import ops as b12
+    from repro_torch.kernels.embedding_bag import ops as b4
+    from repro_torch.kernels.flash_attention import ops as b6
+    from repro_torch.kernels.neighbor_sample import ops as b3
+    from repro_torch.kernels.seg_mm import ops as b5
+
+    return {k: v for mod in (b12, b3, b4, b5, b6) for k, v in mod.launches.items()}
+
+
+def science_phase(seed: int, device: str, sync) -> dict:
+    """Phase 3m (module docstring): dimenet, mace and graphcast training at
+    their published widths (on the CPU, a rehearsal: the smoke configs).
+    dimenet and mace (f32) on ``molecule_batch``: step 0's loss and every
+    gradient within ``SCIENCE_TOL`` of the CPU port on the same params and
+    batch; graphcast (bf16, remat) at ``minibatch_lg``'s sizes through
+    ``graphcast_sizes``: step 0's loss and gradients against the same model
+    in f32 on the card within ``GC_BF16_TOL``; then ``SCIENCE_STEPS`` AdamW
+    steps each (split, peak memory).  No kernel of B1–B6 may launch: the
+    reference runs these models through XLA, the port through torch ops."""
+    import torch
+
+    from repro_torch.configs import dimenet_cfg, graphcast_cfg, mace_cfg
+    from repro_torch.configs.common import _gnn_sizes
+    from repro_torch.data import graphcast_sizes, synthetic_gc_batch
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import dimenet, graphcast, mace
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.optim.tree import leaves
+
+    t_phase = time.perf_counter()
+    full = device == "cuda"
+    before = kernel_launch_counts()
+    if full:
+        check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 is off for float32 matmuls")
+    molecules = molecule_batch(seed + 40, device)
+    n, e, _ = _gnn_sizes("minibatch_lg") if full else (512, 512, None)
+    out = {"molecule": {"nodes": molecules.n_nodes, "edges": molecules.n_edges,
+                        "graphs": molecules.n_graphs,
+                        "triplets": int(molecules.edge_attr[:, 2].sum())},
+           "graphcast_sizes": dict(zip(("grid", "mesh", "g2m", "mesh_edges", "m2g"),
+                                       graphcast_sizes(n, e)))}
+    for name, cfg_mod, model in (("dimenet", dimenet_cfg, dimenet), ("mace", mace_cfg, mace),
+                                 ("graphcast", graphcast_cfg, graphcast)):
+        cfg = cfg_mod.full_config() if full else cfg_mod.smoke_config()
+        if full:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        params = model.init_params(torch.Generator(device=device).manual_seed(seed + 41), cfg,
+                                   device=device)
+        batch = (synthetic_gc_batch(n_nodes=n, n_edges=e, n_vars=cfg.n_vars, seed=seed + 42,
+                                    device=device) if name == "graphcast" else molecules)
+
+        def loss(p, b, cfg=cfg, model=model):
+            return model.loss_fn(p, b, cfg)
+
+        t0 = time.perf_counter()
+        got_l, got = grads_of(loss, params, batch)
+        sync()
+        res = {"config": cfg.name, "grad_ms": (time.perf_counter() - t0) * 1e3,
+               "n_params": sum(t.numel() for t in leaves(params))}
+        if name == "graphcast":  # against the same model in f32 on the card
+            cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+            want_l, want = grads_of(lambda p, b: model.loss_fn(p, b, cfg32), params, batch)
+            tol, against = GC_BF16_TOL, "f32 on the card"
+            loss_ok = bool(torch.isclose(got_l, want_l, rtol=GC_BF16_LOSS_TOL, atol=0))
+        else:  # against the CPU port
+            t0 = time.perf_counter()
+            want_l, want = grads_of(loss, moved(params, "cpu"), batch.to("cpu"))
+            res["cpu_s"] = time.perf_counter() - t0
+            tol, against = SCIENCE_TOL, "the CPU port"
+            loss_ok = bool(torch.isclose(got_l.cpu(), want_l, rtol=tol, atol=0))
+        check(loss_ok, f"3m {name}: step-0 loss {float(got_l)} against {against}'s "
+                       f"{float(want_l)}")
+        shares = {}
+        for leaf, w in want.items():
+            ok, shares[leaf] = grads_within(got[leaf].to(w.device), w, tol)
+            check(ok, f"3m {name}: gradient {leaf} within {tol} of {against} "
+                      f"(share {shares[leaf]:.3g})")
+        worst = max(shares, key=shares.get)
+        res["step0"] = {"against": against, "tol": tol, "loss": float(got_l),
+                        "loss_against": float(want_l), "largest_share": shares[worst],
+                        "largest_share_leaf": worst}
+        del got, want
+        step_fn = make_train_step(loss, lambda step, batch=batch: batch,
+                                  AdamWConfig(**SCIENCE_OPT), sync=sync)
+        state = (params, init_state(params))
+        del params
+        logs = []
+        for step in range(SCIENCE_STEPS):
+            state, m = step_fn(state, step)
+            logs.append({"loss": float(m["loss"]), **m.get("ms", {})})
+        check(all(np.isfinite(x["loss"]) for x in logs), f"3m {name}: finite losses {logs}")
+        res["steps"] = logs
+        if full:
+            res["step_ms"] = {k: statistics.median(x[k] for x in logs[1:])
+                              for k in ("batch", "forward", "backward", "update")}
+            res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out[name] = res
+        del state, batch
+    after = kernel_launch_counts()
+    out["kernel_launches"] = {k: after[k] - before[k] for k in after}
+    check(not any(out["kernel_launches"].values()),
+          f"3m: no kernel of B1-B6 launched ({out['kernel_launches']})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def train_backward_checks(device) -> None:
     """Phase 2's backward passes: B5ᵀ (``seg_mm``'s backward) against the
     plain version's autograd over ragged shapes with src ids outside
@@ -3728,10 +4237,13 @@ def flash_attention_entry(name: str, call, launches: int) -> dict:
     and query head (two products) at the dense bf16 rate, against q, k, v
     read once and o written once.  The yardsticks are
     ``scaled_dot_product_attention`` with GQA and a boolean mask of the
-    same causal window (``library_ms``) and, on the global layer, with
+    same causal window (``library_mask_ms``) and, on a global layer, with
     ``is_causal=True`` and no mask (``library_causal_ms``, which may take
-    the flash backend), both without the softcap: not the same function,
-    as no PyTorch call softcaps attention scores."""
+    the flash backend).  With a softcap neither is the same function (no
+    PyTorch call softcaps attention scores), and ``library_ms`` is the
+    masked call's time; without one both are (the MoE LMs' layers), and
+    ``library_ms`` is the causal call's time on a global layer, the masked
+    call's on a windowed one."""
     import torch
 
     from repro_torch.kernels.flash_attention import kernel, ops, ref
@@ -3783,17 +4295,32 @@ def flash_attention_entry(name: str, call, launches: int) -> dict:
              "bound_ms": max(flops / rate, moved_bytes / HBM_BYTES_PER_S) * 1e3,
              "bound_by": "operations" if flops / rate >= moved_bytes / HBM_BYTES_PER_S
              else "bytes",
-             "library_ms": time_ms(library, 10),
-             "library_note": "not the same function: no softcap",
+             "library_mask_ms": time_ms(library, 10),
              "library_causal_ms": (time_ms(library_causal, 10) if kw.get("window") is None
                                    and kw.get("q_offset", 0) == 0 and sq == skv else None),
-             "library_causal_note": "not the same function: no softcap; is_causal, no mask",
              "shape": {"B": b, "Sq": sq, "Skv": skv, "Hq": hq, "Hkv": k.shape[2], "D": d,
                        "dtype": str(q.dtype), **{kk: vv for kk, vv in kw.items()},
                        "pairs": pairs, "flop": flops}}
     entry["tflop_per_s"] = flops / entry["ms"] / 1e9
     entry["tflop_per_s_mma_sync_kernel"] = flops / entry["ms_mma_sync_kernel"] / 1e9
+    library_yardsticks(entry, kw.get("cap"))
     return entry
+
+
+def library_yardsticks(entry: dict, cap) -> None:
+    """``library_ms`` and its note from an entry's SDPA times (masked, and
+    ``is_causal`` where the mask is plain causal): without a softcap SDPA
+    computes B6's function and ``is_causal`` is preferred; with one neither
+    call does, and the masked call is the yardstick."""
+    causal = entry["library_causal_ms"]
+    if cap is None:
+        entry["library_ms"] = causal if causal is not None else entry["library_mask_ms"]
+        entry["library_note"] = ("the same function (no softcap): SDPA "
+                                 + ("is_causal" if causal is not None else "with the boolean mask"))
+    else:
+        entry["library_ms"] = entry["library_mask_ms"]
+        entry["library_note"] = ("not the same function: no softcap; with the boolean mask"
+                                 + ("; library_causal_ms: is_causal, no mask" if causal else ""))
 
 
 def flash_attention_bwd_entries(device) -> list:
@@ -3839,9 +4366,10 @@ def flash_attention_bwd_entry(name: str, call) -> dict:
     f32) runs one KV head's group at a time: all heads' (Sq, Skv) f32
     intermediates at 8,192 tokens would take ~35 GB.  The yardstick is
     ``scaled_dot_product_attention``'s backward with GQA and a boolean mask
-    of the same causal window (``library_ms``) and, where the window masks
-    nothing, with ``is_causal=True`` (``library_causal_ms``, which may take
-    the flash backend), both without the softcap: not the same function."""
+    of the same causal window (``library_mask_ms``) and, where the window
+    masks nothing, with ``is_causal=True`` (``library_causal_ms``, which may
+    take the flash backend); ``library_yardsticks`` picks ``library_ms``
+    (the same function only without a softcap)."""
     import torch
 
     from repro_torch.kernels.flash_attention import kernel, ops, ref
@@ -3941,14 +4469,32 @@ def flash_attention_bwd_entry(name: str, call) -> dict:
              "bound_ms": max(flops / BF16_FLOP_PER_S, moved_bytes / HBM_BYTES_PER_S) * 1e3,
              "bound_by": "operations" if flops / BF16_FLOP_PER_S >= moved_bytes / HBM_BYTES_PER_S
              else "bytes",
-             "library_ms": time_ms(lib, 5),
-             "library_note": "not the same function: SDPA's backward, no softcap",
+             "library_mask_ms": time_ms(lib, 5),
              "library_causal_ms": time_ms(lib_causal, 5) if lib_causal else None,
-             "library_causal_note": "not the same function: no softcap; is_causal, no mask",
              "shape": {"B": b, "Sq": sq, "Skv": skv, "Hq": hq, "Hkv": hkv, "D": d,
                        "dtype": str(q.dtype), **kw, "pairs": pairs, "flop": flops}}
     entry["tflop_per_s"] = flops / entry["device_ms"] / 1e9
+    library_yardsticks(entry, kw["cap"])
     return entry
+
+
+def moe_bwd_entry(device) -> dict:
+    """Phase 5's line for B6's backward at 3l's training layer: mixtral's
+    train_4k layer, q (1, 4096, 48, 128), k and v (1, 4096, 8, 128), window
+    4,096 (which masks nothing at 4,096 tokens), no softcap, seeded bf16
+    inputs (q and k entries of std 0.3, v of std 1)."""
+    import torch
+
+    from repro_torch.configs.common import LM_SHAPES
+
+    gen = torch.Generator(device=device).manual_seed(23)
+    s, hq, hkv, d = LM_SHAPES["train_4k"]["seq_len"], 48, 8, 128
+    q = (torch.randn((1, s, hq, d), generator=gen, device=device) * 0.3).to(torch.bfloat16)
+    k = (torch.randn((1, s, hkv, d), generator=gen, device=device) * 0.3).to(torch.bfloat16)
+    v = torch.randn((1, s, hkv, d), generator=gen, device=device).to(torch.bfloat16)
+    return flash_attention_bwd_entry("flash_attention backward (B6) mixtral train_4k layer",
+                                     (q, k, v, dict(causal=True, window=4096, cap=None,
+                                                    q_offset=0)))
 
 
 def embedding_bag_entry(name: str, tables, idxs, launches: int) -> dict:
@@ -4547,6 +5093,66 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
         check(tl["launches"]["bwd_sm90"] > 0 and min(tl["launches"]["sm90"].values()) > 0,
               "3k: the LM's training launched B6's backward and its forward at both layer kinds")
 
+    # --- phase 3l: the MoE LMs (Mixtral-8x22B, DBRX) at their published widths, after 3k
+    # freed its state
+    out["moe"] = moe_phase(seed, device, sync)
+    moe_out = out["moe"]
+    moe_calls = moe_out.pop("b6_calls")
+    print("phase 3l timings", json.dumps({
+        "phase_s": moe_out["phase_s"],
+        **{a: {"prefill_8k_ms": moe_out[a]["prefill_8k"]["median_ms"],
+               "init_s": moe_out[a]["init_s"], "weights_gb": moe_out[a]["weights_gb"],
+               "peak_gib": moe_out[a]["peak_gib"],
+               "generate_step_ms": moe_out[a].get("generate", {}).get("median_step_ms")}
+           for a in MOE_SERVE_LAYERS},
+        "train_step_ms": moe_out["train"].get("step_ms"),
+        "train_peak_gib": moe_out["train"]["peak_gib"]}), flush=True)
+    print("phase 3l ok: every MoE layer's B6 call within", B6_TOL["bfloat16"], "of the plain",
+          "path; the training loss falls; one full-width f32 layer's outputs, step-0 loss and",
+          "gradients within", MOE_TOL, "of the plain path given B6's routing, drop counts equal",
+          json.dumps({"grad_check": moe_out["grad_check"], "launches": moe_out["launches"],
+                      "losses": [x["loss"] for x in moe_out["train"]["steps"]],
+                      "routing": {a: {k: moe_out[a]["prefill_8k"][k] for k in (
+                          "capacity", "pairs", "dropped_pairs_layer0",
+                          "tokens_by_expert_layer0")} for a in MOE_SERVE_LAYERS}}), flush=True)
+    if device == "cuda":
+        check(moe_out["launches"]["bwd_sm90"] > 0 and min(moe_out["launches"]["sm90"].values())
+              > 0, "3l: the MoE LMs launched B6's forward (both models) and its backward")
+        # phase 5 at the MoE LMs' shapes (G = 6, D = 128, no softcap): the recorded
+        # prefill calls and mixtral's train_4k backward; SDPA computes the same function
+        b6m = [flash_attention_entry(f"flash_attention (B6) {arch} prefill_8k {kind} layer",
+                                     moe_calls[arch], moe_out["launches"]["sm90"][arch])
+               for arch, kind in (("mixtral-8x22b", "local"), ("dbrx-132b", "global"))]
+        check(all(e["kernel"] == "sm90" for e in b6m), "the MoE layers ran the wgmma/TMA kernel")
+        b6mb = moe_bwd_entry(device)
+        b6mb["launches"] = moe_out["launches"]["bwd_sm90"]
+        for entry in (*b6m, b6mb):
+            entry["launches_by_path"] = {"moe": entry["launches"]}
+            entry["share_of_bound"] = entry["bound_ms"] / entry["device_ms"]
+        out["kernels"] += [*b6m, b6mb]
+        print("phase 5 (MoE shapes) B6", json.dumps(
+            [{k: e[k] for k in ("name", "device_ms", "ms", "bound_ms", "share_of_bound",
+                                "plain_ms", "library_ms", "library_note", "launches")}
+             for e in (*b6m, b6mb)]), flush=True)
+    del moe_calls
+
+    # --- phase 3m: the science models' training (DimeNet, MACE, GraphCast)
+    out["science"] = science_phase(seed, device, sync)
+    sci = out["science"]
+    print("phase 3m timings", json.dumps({
+        "phase_s": sci["phase_s"],
+        **{m: {k: sci[m].get(k) for k in ("grad_ms", "step_ms", "peak_gib")}
+           for m in ("dimenet", "mace", "graphcast")}}), flush=True)
+    print("phase 3m ok: dimenet and mace step-0 loss and gradients within", SCIENCE_TOL,
+          "of the CPU port, graphcast (bf16) within", GC_BF16_TOL, "of its f32 run on the card;",
+          "these models launch none of B1-B6 (torch ops, as the reference leaves them to XLA)",
+          json.dumps({"step0": {m: sci[m]["step0"] for m in ("dimenet", "mace", "graphcast")},
+                      "losses": {m: [x["loss"] for x in sci[m]["steps"]]
+                                 for m in ("dimenet", "mace", "graphcast")},
+                      "kernel_launches": sum(sci["kernel_launches"].values()),
+                      "molecule": sci["molecule"], "graphcast_sizes": sci["graphcast_sizes"]}),
+          flush=True)
+
     # --- phase 3h: the service and wire layer over the same graph.  It runs after phase 5:
     # placed after 3g it aged the process by its 40 s and two subprocesses, and phase 5's
     # profiler sessions then lost every B1 record of a timing (on_card; PERF.md §6).
@@ -4632,7 +5238,10 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
                                   out["recsys"]["peak_mem_gib"], out["lm"]["peak_mem_gib"],
                                   out["train_dlrm"]["peak_mem_gib"], svc_out["mem_peak_gib"],
                                   out["train_lm"]["grad_check"]["peak_gib"],
-                                  *(v["peak_gib"] for v in out["train_lm"]["steps"].values()))
+                                  *(v["peak_gib"] for v in out["train_lm"]["steps"].values()),
+                                  *(moe_out[a]["peak_gib"] for a in MOE_SERVE_LAYERS),
+                                  moe_out["train"]["peak_gib"],
+                                  *(sci[m]["peak_gib"] for m in ("dimenet", "mace", "graphcast")))
     return out
 
 

@@ -1,4 +1,5 @@
-"""repro_torch.configs — one module per architecture.  Ported so far:
-``gcn_cora``, ``dlrm_rm2``, the dense LMs ``gemma2_9b``, ``starcoder2_7b``
-and ``qwen2_72b`` (the MoE LMs wait for ROADMAP A13b), and ``common``'s LM
-and recsys shape tables, and ``registry`` (``ARCHS``, ``get_arch``)."""
+"""repro_torch.configs — one module per architecture, all ten of the
+reference's: the LMs ``mixtral_8x22b``, ``dbrx_132b``, ``gemma2_9b``,
+``qwen2_72b`` and ``starcoder2_7b``, the GNNs ``gcn_cora``, ``mace_cfg``,
+``dimenet_cfg`` and ``graphcast_cfg``, and ``dlrm_rm2``; ``common``'s
+shape tables and ``registry`` (``ARCHS``, ``get_arch``)."""

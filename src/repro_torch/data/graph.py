@@ -1,23 +1,25 @@
-"""Graph data pipeline: GraphBatch builders for the GNN shapes.
+"""Graph data pipeline: GraphBatch and GCBatch builders for the GNN shapes.
 
-Both builders draw from numpy's seeded generator in the reference's order,
+The builders draw from numpy's seeded generator in the reference's order,
 so the same arguments give the same arrays in both packages; tensors are
-placed on ``device`` (None: the CUDA card).  Ported so far:
-``synthetic_graph_batch`` and ``build_triplets`` (DimeNet triplet lists,
-built from DI adjacency, capped at 8×E).  The GraphCast batch
-(``synthetic_gc_batch``, ``graphcast_sizes``) waits for the science models.
+placed on ``device`` (None: the CUDA card).  ``synthetic_graph_batch``,
+``build_triplets`` (DimeNet triplet lists, built from DI adjacency, capped
+at 8×E), ``synthetic_gc_batch`` and ``graphcast_sizes`` (GraphCast's mesh
+sizes derived from a GNN shape).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models.gnn_common import GraphBatch
+from repro_torch.models.graphcast import GCBatch
 
-__all__ = ["synthetic_graph_batch", "build_triplets", "TRIPLET_CAP_FACTOR"]
+__all__ = ["synthetic_graph_batch", "build_triplets", "synthetic_gc_batch", "graphcast_sizes",
+           "TRIPLET_CAP_FACTOR"]
 
 TRIPLET_CAP_FACTOR = 8
 
@@ -76,4 +78,30 @@ def synthetic_graph_batch(
         node_mask=torch.ones(n_nodes, dtype=torch.bool, device=device),
         labels=labels, graph_ids=t(gid),
         n_nodes=n_nodes, n_edges=n_edges, n_graphs=n_graphs,
+    )
+
+
+def graphcast_sizes(n_nodes: int, n_edges: int) -> Tuple[int, int, int, int, int]:
+    """(n_grid, n_mesh, n_g2m, n_mesh_e, n_m2g) of a GNN shape's
+    (n_nodes, n_edges): the grid is the nodes, the mesh a quarter of them,
+    g2m and m2g one edge each, the mesh half the edges."""
+    n_mesh = max(8, n_nodes // 4)
+    return n_nodes, n_mesh, n_edges, max(8, n_edges // 2), n_edges
+
+
+def synthetic_gc_batch(*, n_nodes: int, n_edges: int, n_vars: int, d_edge: int = 4,
+                       seed: int = 0, device=None) -> GCBatch:
+    device = resolve_device(device)
+    ng, nm, ne_g2m, ne_mesh, ne_m2g = graphcast_sizes(n_nodes, n_edges)
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s: torch.from_numpy(rng.standard_normal(s, np.float32)).to(device)  # noqa: E731
+    ids = lambda hi, n: torch.from_numpy(  # noqa: E731
+        rng.integers(0, hi, n, dtype=np.int32)).to(device)
+    return GCBatch(
+        grid_x=f32(ng, n_vars),
+        g2m_src=ids(ng, ne_g2m), g2m_dst=ids(nm, ne_g2m), g2m_attr=f32(ne_g2m, d_edge),
+        mesh_src=ids(nm, ne_mesh), mesh_dst=ids(nm, ne_mesh), mesh_attr=f32(ne_mesh, d_edge),
+        m2g_src=ids(nm, ne_m2g), m2g_dst=ids(ng, ne_m2g), m2g_attr=f32(ne_m2g, d_edge),
+        targets=f32(ng, n_vars),
+        n_grid=ng, n_mesh=nm, n_g2m=ne_g2m, n_mesh_e=ne_mesh, n_m2g=ne_m2g,
     )

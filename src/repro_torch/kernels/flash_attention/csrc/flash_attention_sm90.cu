@@ -738,6 +738,17 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled is a driver call: it needs a context current on the
+// calling thread, and a thread that has made no runtime call yet has none (autograd's
+// device thread when B6 is the first CUDA work of a backward: the encode returned
+// CUDA_ERROR_INVALID_CONTEXT).  cudaSetDevice makes the device's primary context
+// current on this thread.
+cudaError_t bind_context() {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  return err != cudaSuccess ? err : cudaSetDevice(dev);
+}
+
 // a 4-D map over a (B, S, H, D) bf16 tensor with D contiguous: dims (D, H, S, B),
 // boxes of 64 columns x 1 head x 64 rows x 1 batch row, 128-byte swizzle
 bool encode(CUtensorMap* map, const void* base, int d, int h, int s, int b, long long sh,
@@ -783,6 +794,8 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k, const v
       d > 256 || d % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const cudaError_t bound = bind_context();
+  if (bound != cudaSuccess) return static_cast<int>(bound);
   CUtensorMap tq, tk, tv;
   if (!encode(&tq, q, d, hq, sq, batch, strides[2], strides[1], strides[0]) ||
       !encode(&tk, k, d, hkv, skv, batch, strides[5], strides[4], strides[3]) ||

@@ -33,9 +33,18 @@ def gather_rows(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``x[gather_ids(ids, len(x))]`` with the reference's gradient: rows
     read for ids in [-n, n) pass their gradient back (those in [-n, -1] to
     the row they wrap to), rows read for any other id pass none.  The
-    forward is the plain gather, bit for bit."""
+    forward is the plain gather, bit for bit.  The backward sums a row's
+    gradients in one fixed order on either device: on the CPU through
+    ``index_select`` (whose backward, ``index_add_``, adds in index order;
+    indexing's ``index_put_`` accumulates from several threads there once
+    the gradient has ~32K elements), on the card through indexing (whose
+    ``index_put_`` sorts the ids; ``index_add_`` uses atomics there)."""
     n = x.shape[0]
-    rows = x[gather_ids(ids, n)]
+    idx = gather_ids(ids, n)
+    if x.device.type == "cpu":
+        rows = x.index_select(0, idx.reshape(-1)).reshape(idx.shape + x.shape[1:])
+    else:
+        rows = x[idx]
     if not (torch.is_grad_enabled() and x.requires_grad):
         return rows
     ok = in_range(ids, n).reshape((-1,) + (1,) * (x.dim() - 1))

@@ -5,7 +5,8 @@ a step against ring-buffer caches for windowed layers), as the reference's
 demo does; tokens are picked greedily or drawn from a seeded generator.
 By default the model is the arch's smoke config with random weights on the
 card; ``cfg`` and ``params`` override them (``chip_smoke.py`` serves
-Gemma-2-9B at full width through this entry point).
+Gemma-2-9B, Mixtral-8x22B and DBRX at full width through this entry
+point).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
         --batch 4 --prompt-len 16 --gen 16 [--device cpu]
@@ -18,13 +19,13 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.configs.registry import ARCHS, PENDING, get_arch
+from repro_torch.configs.registry import ARCHS, get_arch
 from repro_torch.core.device import resolve_device
 from repro_torch.models import transformer as T
 
 __all__ = ["LM_ARCHS", "serve_demo", "main"]
 
-# the ported LMs in the registry; mixtral-8x22b and dbrx-132b wait for the MoE FFN (A13b)
+# the LMs of the registry: dense and mixture-of-experts
 LM_ARCHS = {k: m for k, m in ARCHS.items() if m.FAMILY == "lm"}
 
 
@@ -38,8 +39,7 @@ def serve_demo(arch_id: str, *, batch: int, prompt_len: int, gen: int, seed: int
     step, the card synchronised after it}; the reference returns the
     generated tokens alone."""
     if arch_id not in LM_ARCHS:
-        why = f" (ROADMAP {PENDING[arch_id]})" if arch_id in PENDING else ""
-        raise SystemExit(f"{arch_id} is not a ported LM{why}; serve supports {sorted(LM_ARCHS)}")
+        raise SystemExit(f"{arch_id} is not an LM; serve supports {sorted(LM_ARCHS)}")
     device = resolve_device(device)
     cfg = cfg or get_arch(arch_id).smoke_config()
     gen_ = torch.Generator(device=device).manual_seed(seed)

@@ -1,4 +1,4 @@
-"""Training launcher: any ported --arch, restartable.
+"""Training launcher: any --arch of the registry, restartable.
 
 The port of ``src/repro/launch/train.py``.  It runs the arch's smoke
 config end to end: real AdamW steps with checkpoints and failure recovery,
@@ -7,12 +7,14 @@ on the card unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora \\
         --steps 12 --ckpt-every 4 --fail-at 6 [--device cpu]
 
-Families: ``lm`` (the dense LMs), ``recsys`` (``dlrm-rm2``) and ``gnn``
-(``gcn-cora``; the science models wait for ROADMAP A14).  On the card the
-GCN's aggregation runs B5 forward and B5ᵀ backward, DLRM's lookup B4
-forward with its backward on B5, and every LM layer's attention B6 forward
-(with its row log-sum-exp) and B6's backward kernels (``flash_attention_bwd.cu``),
-each pattern group rematerialized as the config's ``remat`` says.
+Families: ``lm`` (the dense and the mixture-of-experts LMs), ``recsys``
+(``dlrm-rm2``) and ``gnn`` (``gcn-cora`` and the science models
+``dimenet``, ``mace``, ``graphcast`` on the reference's smoke batches).  On
+the card the GCN's aggregation runs B5 forward and B5ᵀ backward, DLRM's
+lookup B4 forward with its backward on B5, and every LM layer's attention
+B6 forward (with its row log-sum-exp) and B6's backward kernels, each
+pattern group rematerialized as the config's ``remat`` says; the science
+models run torch ops (the reference runs them through XLA).
 
 Fault tolerance: the ``TrainController`` checkpoints every ``--ckpt-every``
 steps and resumes from the newest checkpoint; ``--fail-at`` injects a
@@ -33,7 +35,7 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.device import resolve_device
-from repro_torch.data import dlrm_batch, lm_batch, synthetic_graph_batch
+from repro_torch.data import dlrm_batch, lm_batch, synthetic_gc_batch, synthetic_graph_batch
 from repro_torch.ft import FailureInjector, TrainController
 from repro_torch.optim import AdamWConfig, apply_updates, init_state
 from repro_torch.optim.tree import flatten, unflatten
@@ -113,22 +115,28 @@ def make_smoke_step(arch_id: str, *, batch: int, seq: int, seed: int = 0, device
             return dlrm_batch(step, batch=batch, vocab=cfg.vocab_size, multi_hot=cfg.multi_hot,
                               seed=seed, device=device)
 
-    elif getattr(mod, "MODEL", None) == "gcn":
-        from repro_torch.models import gcn
+    else:  # gnn: the reference's smoke batches, one fixed batch a run
+        from repro_torch.models import dimenet, gcn, graphcast, mace
 
-        params = gcn.init_params(gen, cfg, device=device)
-        gb = synthetic_graph_batch(n_nodes=128, n_edges=512, d_feat=cfg.d_in,
-                                   n_classes=cfg.n_classes, seed=seed, device=device)
+        M = {"gcn": gcn, "mace": mace, "dimenet": dimenet, "graphcast": graphcast}[mod.MODEL]
+        params = M.init_params(gen, cfg, device=device)
+        if mod.MODEL == "graphcast":
+            gb = synthetic_gc_batch(n_nodes=128, n_edges=512, n_vars=cfg.n_vars, seed=seed,
+                                    device=device)
+        elif mod.MODEL == "gcn":
+            gb = synthetic_graph_batch(n_nodes=128, n_edges=512, d_feat=cfg.d_in,
+                                       n_classes=cfg.n_classes, seed=seed, device=device)
+        else:
+            gb = synthetic_graph_batch(n_nodes=64, n_edges=256, with_pos=True,
+                                       n_species=cfg.n_species, n_graphs=4,
+                                       with_triplets=mod.MODEL == "dimenet", seed=seed,
+                                       device=device)
 
         def loss(p, b):
-            return gcn.loss_fn(p, b, cfg)
+            return M.loss_fn(p, b, cfg)
 
         def batch_fn(step):
             return gb
-
-    else:
-        raise NotImplementedError(f"{arch_id}: the {mod.FAMILY} model "
-                                  f"{getattr(mod, 'MODEL', '?')} is not ported yet (ROADMAP A14)")
 
     return (params, init_state(params)), make_train_step(loss, batch_fn, SMOKE_OPT), cfg
 

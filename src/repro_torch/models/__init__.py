@@ -1,4 +1,4 @@
-"""repro_torch.models — model families.  Ported so far: the GNN stack
-(``gnn_common``, ``gcn``, ``gat`` with GraphSAGE), DLRM (``dlrm``) and the
-dense decoder-only transformer (``transformer``; MoE waits for ROADMAP
-A13b)."""
+"""repro_torch.models — model families: the GNN stack (``gnn_common``,
+``gcn``, ``gat`` with GraphSAGE), the science models (``dimenet``,
+``mace``, ``graphcast``), DLRM (``dlrm``) and the decoder-only transformer
+with dense and mixture-of-experts FFNs (``transformer``)."""

@@ -1,0 +1,193 @@
+"""GraphCast (arXiv:2212.12794) — encoder-processor-decoder mesh GNN.
+
+The port of the reference's ``models/graphcast.py``.  Config: 16 processor
+layers, d_hidden=512, 227 variables, sum aggregation, bf16 activations.
+
+Structure: a grid→mesh encoder (a bipartite interaction network), the mesh
+processor (``n_layers`` interaction networks whose params are stacked on a
+leading layer axis), a mesh→grid decoder.  The generic GNN shapes map as
+the reference maps them: grid nodes = n_nodes, mesh nodes ≈ n_nodes/4,
+g2m/m2g edges = n_edges, mesh edges = n_edges/2 (``data/graph.py``'s
+``graphcast_sizes``); edge features (4-d displacement stand-ins) and all
+index arrays are inputs.
+
+Each interaction network: e' = MLP([e, h_src, h_dst]); h' = MLP([h, Σ e'])
+with residuals and LayerNorm.  As in the reference, the first layers of
+both MLPs are split by input (``e@We + (h_src@Ws)[src] + (h_dst@Wd)[dst]``),
+so the node projections run at node rows and only their results are
+gathered: the same function.  Gathers go through
+``kernels/seg_mm/ref.gather_rows`` and aggregation through
+``graph/segment_ops.segment_sum`` (ids outside [0, n) dropped); torch ops
+throughout, as the reference leaves the model to XLA.  Under ``cfg.remat``
+each processor layer runs under ``torch.utils.checkpoint`` when a gradient
+is taken, as the reference checkpoints its scan body.  The config's
+sharding axes (``dp_axes``, ``tp_axis``) are kept and unused: one
+controller has nothing to constrain.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.device import resolve_device
+from repro_torch.graph.segment_ops import segment_sum
+from repro_torch.kernels.seg_mm.ref import gather_rows
+from repro_torch.models.gnn_common import (init_shaped, load_shaped, mlp_shapes, mlp_stack,
+                                           remat_call)
+from repro_torch.nn.layers import layernorm
+
+__all__ = ["GraphCastConfig", "GCBatch", "init_params", "params_from_reference", "forward",
+           "loss_fn"]
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphCastConfig:
+    name: str = "graphcast"
+    n_layers: int = 16
+    d_hidden: int = 512
+    n_vars: int = 227
+    d_edge: int = 4
+    mesh_refinement: int = 6
+    aggregator: str = "sum"
+    dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    # sharding axes of the reference's launch layer: kept, unused
+    dp_axes: Any = None
+    tp_axis: Any = None
+
+
+_GC_TENSORS = ("grid_x", "g2m_src", "g2m_dst", "g2m_attr", "mesh_src", "mesh_dst", "mesh_attr",
+               "m2g_src", "m2g_dst", "m2g_attr", "targets")
+
+
+@dataclasses.dataclass(frozen=True)
+class GCBatch:
+    grid_x: torch.Tensor      # (Ng, n_vars)
+    g2m_src: torch.Tensor     # (Eg2m,) grid ids
+    g2m_dst: torch.Tensor     # (Eg2m,) mesh ids
+    g2m_attr: torch.Tensor    # (Eg2m, d_edge)
+    mesh_src: torch.Tensor
+    mesh_dst: torch.Tensor
+    mesh_attr: torch.Tensor   # (Em, d_edge)
+    m2g_src: torch.Tensor     # mesh ids
+    m2g_dst: torch.Tensor     # grid ids
+    m2g_attr: torch.Tensor
+    targets: torch.Tensor     # (Ng, n_vars)
+    n_grid: int
+    n_mesh: int
+    n_g2m: int
+    n_mesh_e: int
+    n_m2g: int
+
+    def to(self, device) -> "GCBatch":
+        """The same batch with every tensor on ``device``."""
+        return dataclasses.replace(self, **{f: getattr(self, f).to(device) for f in _GC_TENSORS})
+
+
+def _interaction_shapes(d: int, d_edge_in: int) -> Dict:
+    return {"edge_mlp": mlp_shapes([2 * d + d_edge_in, d, d]),
+            "node_mlp": mlp_shapes([2 * d, d, d]),
+            "ln_e": {"scale": (d,), "bias": (d,)},
+            "ln_n": {"scale": (d,), "bias": (d,)}}
+
+
+def _stacked(tree, n: int):
+    if isinstance(tree, dict):
+        return {k: _stacked(v, n) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_stacked(v, n) for v in tree]
+    return (n,) + tuple(tree)
+
+
+def _shapes(cfg: GraphCastConfig) -> Dict:
+    d = cfg.d_hidden
+    return {"grid_embed": mlp_shapes([cfg.n_vars, d, d]),
+            "mesh_embed": mlp_shapes([cfg.d_edge, d, d]),
+            "edge_embed_g2m": mlp_shapes([cfg.d_edge, d, d]),
+            "edge_embed_mesh": mlp_shapes([cfg.d_edge, d, d]),
+            "edge_embed_m2g": mlp_shapes([cfg.d_edge, d, d]),
+            "encoder": _interaction_shapes(d, d),
+            "processor": _stacked(_interaction_shapes(d, d), cfg.n_layers),
+            "decoder": _interaction_shapes(d, d),
+            "out_mlp": mlp_shapes([d, d, cfg.n_vars])}
+
+
+def init_params(generator: torch.Generator, cfg: GraphCastConfig, *, device=None) -> Dict:
+    """Random f32 params drawn from ``generator`` as the reference draws
+    them (linears normal·d_in^-0.5, zero biases, unit LayerNorm scales; the
+    processor's stacked on a leading layer axis), placed on ``device``
+    (None: the CUDA card).  Activations run in ``cfg.dtype``."""
+    return init_shaped(generator, _shapes(cfg), resolve_device(device))
+
+
+def params_from_reference(params: Dict, cfg: GraphCastConfig, device=None) -> Dict:
+    """The reference's param tree as numpy → the port's, on ``device``
+    (None: the CUDA card); every shape is checked against ``cfg``."""
+    return load_shaped(params, _shapes(cfg), resolve_device(device))
+
+
+def _interaction(p: Dict, h_src, h_dst, e, src, dst, n_dst: int):
+    """One bipartite interaction step → (h_dst', e')."""
+    w, b = p["edge_mlp"][0]["w"], p["edge_mlp"][0].get("b")
+    d_e, d = e.shape[-1], h_src.shape[-1]
+    we, ws, wd = w[:d_e], w[d_e:d_e + d], w[d_e + d:]
+    z = (e @ we.to(e.dtype)
+         + gather_rows(h_src @ ws.to(h_src.dtype), src)
+         + gather_rows(h_dst @ wd.to(h_dst.dtype), dst))
+    if b is not None:
+        z = z + b.to(z.dtype)
+    z = F.silu(z)
+    e_new = layernorm(p["ln_e"], mlp_stack(p["edge_mlp"][1:], z))
+    agg = segment_sum(e_new, dst, n_dst)
+
+    wn, bn = p["node_mlp"][0]["w"], p["node_mlp"][0].get("b")
+    zn = h_dst @ wn[:d].to(h_dst.dtype) + agg @ wn[d:].to(agg.dtype)
+    if bn is not None:
+        zn = zn + bn.to(zn.dtype)
+    zn = F.silu(zn)
+    h_new = layernorm(p["ln_n"], mlp_stack(p["node_mlp"][1:], zn))
+    return h_dst + h_new, e_new
+
+
+def _layer_params(tree, i: int):
+    """Processor layer ``i``'s params (views of the stacked tensors)."""
+    if isinstance(tree, dict):
+        return {k: _layer_params(v, i) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_layer_params(v, i) for v in tree]
+    return tree[i]
+
+
+def forward(params: Dict, b: GCBatch, cfg: GraphCastConfig) -> torch.Tensor:
+    """Predicted grid variables (Ng, n_vars), f32."""
+    dt = cfg.dtype
+    hg = mlp_stack(params["grid_embed"], b.grid_x.to(dt))
+    # mesh nodes initialized from aggregated static g2m attrs (positional proxy)
+    hm = segment_sum(mlp_stack(params["mesh_embed"], b.g2m_attr.to(dt)), b.g2m_dst, b.n_mesh)
+
+    # encode grid → mesh
+    e_g2m = mlp_stack(params["edge_embed_g2m"], b.g2m_attr.to(dt))
+    hm, _ = _interaction(params["encoder"], hg, hm, e_g2m, b.g2m_src, b.g2m_dst, b.n_mesh)
+
+    # process on the mesh, one layer of the stacked params at a time
+    e = mlp_stack(params["edge_embed_mesh"], b.mesh_attr.to(dt))
+
+    def body(hm, e, lp):
+        return _interaction(lp, hm, hm, e, b.mesh_src, b.mesh_dst, b.n_mesh)
+
+    for i in range(cfg.n_layers):
+        lp = _layer_params(params["processor"], i)
+        hm, e = remat_call(body, hm, e, lp) if cfg.remat else body(hm, e, lp)
+
+    # decode mesh → grid
+    e_m2g = mlp_stack(params["edge_embed_m2g"], b.m2g_attr.to(dt))
+    hg, _ = _interaction(params["decoder"], hm, hg, e_m2g, b.m2g_src, b.m2g_dst, b.n_grid)
+    return mlp_stack(params["out_mlp"], hg).to(torch.float32)
+
+
+def loss_fn(params: Dict, b: GCBatch, cfg: GraphCastConfig) -> torch.Tensor:
+    pred = forward(params, b, cfg)
+    return torch.mean((pred - b.targets.to(pred.dtype)) ** 2)

@@ -1,12 +1,16 @@
-"""Decoder-only transformer — the dense part of the reference's LM family.
+"""Decoder-only transformer — the reference's LM family.
 
 One implementation, config-selected features:
   * GQA (n_kv_heads < n_heads), RoPE, optional QKV bias (Qwen2)
   * sliding-window attention + local/global layer alternation (Gemma-2)
   * attention and final logit softcaps, post-norms, GeGLU (Gemma-2)
-
-Mixture-of-experts FFNs (Mixtral, DBRX) wait for ROADMAP A13b: a config
-with ``n_experts`` set raises ``NotImplementedError``.
+  * mixture-of-experts FFNs (Mixtral, DBRX): ``n_experts`` set gives each
+    layer a ``"moe"`` subtree in place of ``"mlp"`` and runs
+    ``nn/moe.py``'s ``moe_ffn`` over the layer's B·S tokens (decode: its B
+    tokens); the layers' Switch aux losses, summed and divided by
+    ``n_layers``, are ``forward``'s second output and add 0.01·aux to the
+    loss.  Routing is decided by deterministic ops (a stable sort), so a
+    rematerialized group routes as it did in the forward.
 
 Layers are grouped into a repeating *pattern* (``("local", "global")`` for
 Gemma-2).  Params keep the reference's layout: ``groups`` holds one dict per
@@ -29,8 +33,9 @@ of ``forward`` runs under ``torch.utils.checkpoint`` (non-reentrant) when a
 gradient is being taken, as the reference checkpoints its scan body:
 ``remat_policy="full"`` keeps only the group's input and recomputes
 the group in the backward; ``"dots"`` keeps the outputs of the matrix
-products without batch dims (the projections and the FFN, ``aten.mm``) and
-recomputes the rest, as ``dots_with_no_batch_dims_saveable``.  A recomputed
+products without batch dims (the projections, the dense FFN and the MoE
+router, ``aten.mm``; not the experts' batched products) and recomputes the
+rest, as ``dots_with_no_batch_dims_saveable``.  A recomputed
 layer launches B6's forward again on the card.
 
 Params are plain dicts of tensors; ``Transformer`` wraps them in an
@@ -46,14 +51,15 @@ import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels.seg_mm.ref import gather_rows
+from repro_torch.models.gnn_common import load_shaped
 from repro_torch.nn.attention import attention
 from repro_torch.nn.layers import label_logits, linear, mlp, rmsnorm, rope, softcap
+from repro_torch.nn.moe import moe_ffn
 
 __all__ = ["TransformerConfig", "Transformer", "init_params", "params_from_reference",
            "forward", "loss_fn", "prefill", "decode_step", "init_cache"]
@@ -83,7 +89,7 @@ class TransformerConfig:
     # ffn
     act: str = "silu"
     gated: bool = True
-    # moe (None ⇒ dense; the experts wait for ROADMAP A13b)
+    # moe (None ⇒ dense); the sharding axes are kept, unused
     n_experts: Optional[int] = None
     top_k: int = 2
     moe_renorm: str = "topk"
@@ -144,12 +150,6 @@ class TransformerConfig:
         return self._counts(self.top_k)
 
 
-def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts FFNs are not ported yet (ROADMAP A13b)")
-
-
 # --------------------------------------------------------------------------- init
 def _layer_shapes(cfg: TransformerConfig) -> Dict:
     """One layer's param shapes (without the leading n_groups axis)."""
@@ -163,9 +163,14 @@ def _layer_shapes(cfg: TransformerConfig) -> Dict:
          "wk": lin(d, hkv * dh, cfg.qkv_bias),
          "wv": lin(d, hkv * dh, cfg.qkv_bias),
          "wo": lin(hq * dh, d),
-         "ln2": {"scale": (d,)},
-         "mlp": {"up": lin(d, ff), "down": lin(ff, d), **({"gate": lin(d, ff)} if cfg.gated
-                                                        else {})}}
+         "ln2": {"scale": (d,)}}
+    if cfg.n_experts:
+        ev, ffv = cfg.n_experts * cfg.moe_virtual_split, ff // cfg.moe_virtual_split
+        s["moe"] = {"router": lin(d, cfg.n_experts), "up": (ev, d, ffv), "down": (ev, ffv, d),
+                    **({"gate": (ev, d, ffv)} if cfg.gated else {})}
+    else:
+        s["mlp"] = {"up": lin(d, ff), "down": lin(ff, d), **({"gate": lin(d, ff)} if cfg.gated
+                                                            else {})}
     if cfg.post_norms:
         s["ln1b"] = {"scale": (d,)}
         s["ln2b"] = {"scale": (d,)}
@@ -193,10 +198,10 @@ def _leaf_dtype(key: str, cfg: TransformerConfig) -> torch.dtype:
 def init_params(generator: torch.Generator, cfg: TransformerConfig, device=None) -> Dict:
     """Random params drawn from ``generator`` (on its device), placed on
     ``device`` (None: the CUDA card): the reference's init (embed
-    normal·0.02, linears normal·d_in^-0.5, zero biases, unit norm scales).
-    Matrices are drawn in f32 one group slice at a time and held in
-    ``cfg.dtype``; draw on the card with a CUDA generator at full size."""
-    _dense_only(cfg)
+    normal·0.02, linears and experts' up/gate normal·d_in^-0.5, experts'
+    down normal·d_ff^-0.5, zero biases, unit norm scales).  Matrices are
+    drawn in f32 one group slice at a time and held in ``cfg.dtype``; draw
+    on the card with a CUDA generator at full size."""
     device = resolve_device(device)
 
     def leaf(key: str, shape: Tuple[int, ...]) -> torch.Tensor:
@@ -205,12 +210,13 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig, device=None)
             return out.fill_(1.0)
         if key == "b":
             return out.zero_()
-        d_in = shape[-2]
-        scale = 0.02 if key == "embed" else 1.0 / math.sqrt(d_in)
-        for g in range(shape[0] if len(shape) == 3 else 1):
-            draw = torch.randn(shape[-2:], generator=generator, dtype=torch.float32,
-                               device=generator.device).mul_(scale)
-            (out[g] if len(shape) == 3 else out).copy_(draw)
+        scale = (0.02 if key == "embed" else cfg.d_ff ** -0.5 if key == "down"
+                 else 1.0 / math.sqrt(shape[-2]))
+        grouped = len(shape) >= 3  # every leaf under "groups" has the n_groups axis
+        for g in range(shape[0] if grouped else 1):
+            draw = torch.randn(shape[1:] if grouped else shape, generator=generator,
+                               dtype=torch.float32, device=generator.device).mul_(scale)
+            (out[g] if grouped else out).copy_(draw)
         return out
 
     def build(tree, key=None):
@@ -229,27 +235,8 @@ def params_from_reference(params: Dict, cfg: TransformerConfig, device=None) -> 
     ``lm_head`` unless tied) → the port's, on ``device`` (None: the CUDA
     card).  Every shape is checked against ``cfg``; matrices and biases are
     held in ``cfg.dtype``, norm scales in f32 (module docstring)."""
-    _dense_only(cfg)
-    device = resolve_device(device)
-
-    def load(tree, want, path):
-        if isinstance(want, dict):
-            if not isinstance(tree, dict) or set(tree) != set(want):
-                got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
-                raise ValueError(f"{path or 'params'}: keys {got}, config wants {sorted(want)}")
-            return {k: load(tree[k], want[k], f"{path}.{k}" if path else k) for k in want}
-        if isinstance(want, list):
-            if not isinstance(tree, (list, tuple)) or len(tree) != len(want):
-                raise ValueError(f"{path}: want {len(want)} pattern positions")
-            return [load(t, w, f"{path}[{i}]") for i, (t, w) in enumerate(zip(tree, want))]
-        a = np.asarray(tree)
-        if tuple(a.shape) != tuple(want):
-            raise ValueError(f"{path}: shape {tuple(a.shape)}, config wants {tuple(want)}")
-        key = path.rsplit(".", 1)[-1]
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device=device, dtype=_leaf_dtype(key, cfg))
-
-    return load(params, _shapes(cfg), "")
+    return load_shaped(params, _shapes(cfg), resolve_device(device),
+                       dtype=lambda key: _leaf_dtype(key, cfg))
 
 
 def _layer(params: Dict, i: int, g: int) -> Dict:
@@ -340,12 +327,18 @@ def _decode_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, k_pos: t
 
 
 def _ffn_block(lp: Dict, x: torch.Tensor, cfg: TransformerConfig):
-    _dense_only(cfg)
     h = rmsnorm(lp["ln2"], x, plus_one=cfg.post_norms)
-    y = mlp(lp["mlp"], h, act=cfg.act)
+    if cfg.n_experts:  # as the reference, the experts' activation is moe_ffn's silu
+        b, s, d = h.shape
+        y, aux = moe_ffn(lp["moe"], h.reshape(b * s, d), top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor, renorm=cfg.moe_renorm,
+                         n_groups=cfg.moe_groups, virtual_split=cfg.moe_virtual_split)
+        y = y.reshape(b, s, d)
+    else:
+        y, aux = mlp(lp["mlp"], h, act=cfg.act), 0.0
     if cfg.post_norms:
         y = rmsnorm(lp["ln2b"], y, plus_one=True)
-    return y, 0.0
+    return y, aux
 
 
 def _group(params: Dict, g: int, x: torch.Tensor, positions: torch.Tensor,
@@ -385,7 +378,6 @@ def forward(params: Dict, tokens: torch.Tensor,
     """Training/prefill forward.  tokens: (B, S) → (hidden (B, S, D), aux_loss).
     Under autograd each pattern group is rematerialized per ``cfg.remat``
     (module docstring)."""
-    _dense_only(cfg)
     _, s = tokens.shape
     x = _embed(params, tokens, cfg)
     positions = torch.arange(s, device=x.device)[None, :]
@@ -397,6 +389,8 @@ def forward(params: Dict, tokens: torch.Tensor,
         x, g_aux = group(params, g, x, positions, cfg)
         aux = aux + g_aux
     x = rmsnorm(params["final_norm"], x, plus_one=cfg.post_norms)
+    if torch.is_tensor(aux):  # the MoE layers' losses, with their gradient
+        return x, (aux / cfg.n_layers).to(torch.float32)
     # a fill, not torch.tensor: no host-to-device copy waits on the card here
     return x, torch.full((), aux / cfg.n_layers, dtype=torch.float32, device=x.device)
 
@@ -436,7 +430,6 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None,
     card).  Windowed layers get ring buffers of length min(window,
     max_len); global layers full max_len.  ``cur`` (the next position) is
     a Python int."""
-    _dense_only(cfg)
     dtype = dtype or cfg.dtype
     device = resolve_device(device)
     caches: Dict[str, Any] = {}
@@ -454,7 +447,6 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor, cfg: Transforme
     """One decode step.  tokens: (B, 1) → (logits (B, 1, V), new cache).
     The new cache holds the old one's K/V tensors, written in place, and
     ``cur + 1``."""
-    _dense_only(cfg)
     b, s = tokens.shape
     assert s == 1
     cur = int(cache["cur"])
@@ -491,7 +483,6 @@ class Transformer(torch.nn.Module):
 
     def __init__(self, cfg: TransformerConfig, params: Dict):
         super().__init__()
-        _dense_only(cfg)
         self.cfg = cfg
         self.weights = torch.nn.ParameterDict(
             {name: torch.nn.Parameter(t, requires_grad=False)

@@ -1,8 +1,9 @@
 """LM training in the port against the reference package on the CPU.
 
-For each dense LM smoke config (gemma2-9b: local/global windows, softcaps,
+For each LM smoke config (gemma2-9b: local/global windows, softcaps,
 post-norms, tied embeddings; qwen2-72b: QKV bias; starcoder2-7b: plain
-GELU FFN), the reference's params (drawn with its own key) go through
+GELU FFN; mixtral-8x22b and dbrx-132b: mixture-of-experts FFNs, whose aux
+loss adds 0.01·aux and whose routing the recompute repeats), the reference's params (drawn with its own key) go through
 ``params_from_reference`` and numpy tokens and labels go to both; the
 port's ``loss_fn`` and its gradients by autograd are held to ``jax.grad``
 of the reference's ``loss_fn`` with ``remat`` off, ``"full"`` and
@@ -26,18 +27,21 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import dbrx_132b as ref_dbrx
 from repro.configs import gemma2_9b as ref_gemma
+from repro.configs import mixtral_8x22b as ref_mixtral
 from repro.configs import qwen2_72b as ref_qwen
 from repro.configs import starcoder2_7b as ref_star
 from repro.models import transformer as RT
-from repro_torch.configs import gemma2_9b, qwen2_72b, starcoder2_7b
+from repro_torch.configs import dbrx_132b, gemma2_9b, mixtral_8x22b, qwen2_72b, starcoder2_7b
 from repro_torch.launch import train
 from repro_torch.models import transformer as T
 from repro_torch.optim.tree import flatten_with_paths, leaves, unflatten
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = {"gemma2-9b": (ref_gemma, gemma2_9b), "starcoder2-7b": (ref_star, starcoder2_7b),
-         "qwen2-72b": (ref_qwen, qwen2_72b)}
+         "qwen2-72b": (ref_qwen, qwen2_72b), "mixtral-8x22b": (ref_mixtral, mixtral_8x22b),
+         "dbrx-132b": (ref_dbrx, dbrx_132b)}
 REMAT = {"off": dict(remat=False), "full": dict(remat=True, remat_policy="full"),
          "dots": dict(remat=True, remat_policy="dots")}
 TOL = 1e-4

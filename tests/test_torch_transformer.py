@@ -7,7 +7,10 @@ both.  At the smoke configs of gemma2-9b (local/global windows, softcaps,
 post-norms, tied embeddings), starcoder2-7b (full attention, plain GELU
 FFN, G = 2) and qwen2-72b (QKV bias): ``forward``, ``loss_fn``,
 ``prefill`` and every step of a 24-step ``decode_step`` loop (past the
-gemma smoke window of 16, so its ring buffer wraps) agree at rtol 1e-5
+gemma smoke window of 16, so its ring buffer wraps), and the same at the
+mixture-of-experts smoke configs of mixtral-8x22b (top-2 of 4 experts,
+softmax over the top logits, window 16) and dbrx-132b (top-2 of 4 after
+the full softmax; decode routes each step's B tokens at capacity 8), agree at rtol 1e-5
 and atol 1e-5 of the largest magnitude compared (``close``: f32 matmuls
 sum in another order than XLA's, and two layers of norms carry that into
 the smallest entries), and 8 greedy tokens equal the reference's.  Token
@@ -25,11 +28,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import dbrx_132b as ref_dbrx
 from repro.configs import gemma2_9b as ref_gemma
+from repro.configs import mixtral_8x22b as ref_mixtral
 from repro.configs import qwen2_72b as ref_qwen
 from repro.configs import starcoder2_7b as ref_star
 from repro.models import transformer as RT
-from repro_torch.configs import gemma2_9b, qwen2_72b, starcoder2_7b
+from repro_torch.configs import dbrx_132b, gemma2_9b, mixtral_8x22b, qwen2_72b, starcoder2_7b
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.models import transformer as T
 
@@ -45,7 +50,8 @@ def close(got, want, tol=TOL):
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = {"gemma2-9b": (ref_gemma, gemma2_9b), "starcoder2-7b": (ref_star, starcoder2_7b),
-         "qwen2-72b": (ref_qwen, qwen2_72b)}
+         "qwen2-72b": (ref_qwen, qwen2_72b), "mixtral-8x22b": (ref_mixtral, mixtral_8x22b),
+         "dbrx-132b": (ref_dbrx, dbrx_132b)}
 
 
 def _models(arch, seed=0, **overrides):
@@ -69,7 +75,8 @@ def test_forward_loss_and_prefill_match_reference(arch):
     h_ref, aux_ref = RT.forward(ref_params, jnp.asarray(toks), ref_cfg)
     h, aux = T.forward(params, torch.from_numpy(toks), cfg)
     close(h.numpy(), np.asarray(h_ref))
-    assert float(aux) == float(aux_ref) == 0.0
+    close(float(aux), float(aux_ref))
+    assert (float(aux_ref) > 0) == bool(cfg.n_experts)
     loss = T.loss_fn(params, torch.from_numpy(toks), torch.from_numpy(labels), cfg)
     want = RT.loss_fn(ref_params, jnp.asarray(toks), jnp.asarray(labels), ref_cfg)
     close(float(loss), float(want))
@@ -231,15 +238,20 @@ def test_params_from_reference_checks_shapes():
         T.params_from_reference(tree, cfg, "cpu")
 
 
-def test_mixture_of_experts_waits_for_a13b():
-    cfg = dataclasses.replace(gemma2_9b.smoke_config(), n_experts=4)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        T.init_params(torch.Generator(), cfg, device="cpu")
-    _, _, dense_cfg, params = _models("gemma2-9b")
-    with pytest.raises(NotImplementedError, match="A13b"):
-        T.forward(params, torch.zeros((1, 4), dtype=torch.int32), cfg)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        T.init_cache(cfg, 1, 4, device="cpu")
+def test_moe_layers_take_the_reference_tree():
+    """A MoE config's layers hold ``"moe"`` (router, experts) in place of
+    ``"mlp"``, with the reference's shapes, also with ``virtual_split``."""
+    for split in (1, 2):
+        ref_cfg, ref_params, cfg, params = _models("mixtral-8x22b", moe_virtual_split=split)
+        p = T.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+        shapes = jax.tree.map(lambda t: tuple(t.shape), p, is_leaf=torch.is_tensor)
+        assert shapes == jax.tree.map(lambda a: tuple(a.shape), ref_params)
+        assert "mlp" not in p["groups"][0] and set(p["groups"][0]["moe"]) == {
+            "router", "up", "down", "gate"}
+        assert 0.8 < float(p["groups"][0]["moe"]["down"].std()) * cfg.d_ff ** 0.5 < 1.2
+        toks = _tokens(10, (2, 20), cfg.vocab)
+        h_ref, _ = RT.forward(ref_params, jnp.asarray(toks), ref_cfg)
+        close(T.forward(params, torch.from_numpy(toks), cfg)[0].numpy(), np.asarray(h_ref))
 
 
 def test_config_counts_match_the_reference():
@@ -282,5 +294,7 @@ def test_serve_demo_returns_the_steps():
     assert out["tokens"].shape == (2, 3) and out["prompts"].shape == (2, 4)
     assert out["logits"].shape == (2, 6, 512) and len(out["step_ms"]) == 6
     assert int(out["tokens"].min()) >= 0 and int(out["tokens"].max()) < 512
-    with pytest.raises(SystemExit, match="not a ported LM"):
-        serve.serve_demo("mixtral-8x22b", batch=1, prompt_len=2, gen=1, device="cpu")
+    with pytest.raises(SystemExit, match="not an LM"):
+        serve.serve_demo("gcn-cora", batch=1, prompt_len=2, gen=1, device="cpu")
+    out = serve.serve_demo("dbrx-132b", batch=2, prompt_len=4, gen=3, device="cpu")
+    assert out["tokens"].shape == (2, 3) and bool(torch.isfinite(out["logits"]).all())
