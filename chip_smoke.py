@@ -210,6 +210,19 @@ none of whose failures is caught:
    through ``graphcast_sizes`` (180,224 grid and 45,056 mesh nodes), step
    0 within ``GC_BF16_TOL`` of its f32 run on the card;
    ``SCIENCE_STEPS`` AdamW steps each.  They launch no kernel of B1–B6.
+3n. last, the dry run (``dryrun_phase``): (a) ``python -m
+   repro_torch.launch.dryrun --all --jobs DRYRUN_JOBS`` as a subprocess:
+   every (arch × shape) cell's step traced at its full published shape on
+   fake ``cuda`` tensors under the cost counter (37 cells, 3 skipped), each
+   cell's FLOPs, kernel charges, peak and per-device argument bytes
+   printed; (b) ``dryrun_checks``' steps, the earlier phases' at their
+   reduced depths (3j (b)'s DLRM ``train_batch``, 3k (ii)'s 8 gemma2-9b
+   layers at 4,096 tokens, 3l (b)'s Mixtral layer, a GCN step at 3j (a)'s
+   widths on ``minibatch_lg``'s sizes), built by ``launch/steps.build_cell``
+   (f32 master weights, AdamW), each run once on real tensors under the
+   counter (untimed) and traced on fake ones: FLOPs and kernel charges
+   equal, the charges equal to the B4/B5/B6 launch counters, the predicted
+   peak beside ``max_memory_allocated`` of the step.
 
 Kernel launch counts are zeroed right before each path and read right
 after it; a kernel of the path that did not launch fails the run.  The
@@ -367,6 +380,9 @@ SCIENCE_STEPS = 3
 SCIENCE_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10_000)
 SCIENCE_TOL = 1e-4
 GC_BF16_TOL, GC_BF16_LOSS_TOL = 1e-1, 1e-2
+# the dry run (phase 3n): (a) every cell on fake tensors in DRYRUN_JOBS worker processes (the
+# card's host has 8 cores and nothing else runs then), at most DRYRUN_TIMEOUT seconds
+DRYRUN_JOBS, DRYRUN_TIMEOUT = 6, 600
 
 
 def check(cond: bool, what: str) -> None:
@@ -5202,6 +5218,19 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
     print("phase 3j (c), 3k (iv) ok: the training CLI exits 0 with 'done' for GCN, DLRM and",
           "Gemma-2", json.dumps({"cli": out["train_cli"]}), flush=True)
 
+    # --- phase 3n: the dry run of every cell on fake tensors, and four real steps against it
+    out["dryrun"] = dryrun_phase(seed, device, sync)
+    dry = out["dryrun"]
+    print("phase 3n timings", json.dumps({
+        "phase_s": dry["phase_s"], "all_s": dry["all_s"], "trace_s_total": dry["trace_s_total"],
+        "steps_trace_s": {k: v["trace_s"] for k, v in dry["steps"].items()}}), flush=True)
+    print("phase 3n cells", json.dumps(dry["cells"]), flush=True)
+    print("phase 3n ok: 37 cells traced on fake", device, "tensors and 3 skipped; four real",
+          "steps count the dry run's FLOPs and kernel charges, the charges equal to the launch",
+          "counters", json.dumps({k: {x: v.get(x) for x in (
+              "flops", "kernel_flops", "launches", "predicted_peak_bytes", "measured_peak_bytes",
+              "peak_share")} for k, v in dry["steps"].items()}), flush=True)
+
     if device == "cuda":
         train = {"gnn": train_gnn["launches"], "dlrm": out["train_dlrm"]["launches"]}
         for entry, launches in ((b1, train["gnn"]["b1"]), (b3, train["gnn"]["b3"])):
@@ -5242,6 +5271,186 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
                                   *(moe_out[a]["peak_gib"] for a in MOE_SERVE_LAYERS),
                                   moe_out["train"]["peak_gib"],
                                   *(sci[m]["peak_gib"] for m in ("dimenet", "mace", "graphcast")))
+    return out
+
+
+# ------------------------------------- phase 3n: the dry run (cost analysis)
+def card_args(args, device, seed: int, below: dict):
+    """Real tensors on ``device`` for a training step's abstract arguments
+    (params, AdamW state, batch): params and float batch leaves normal·0.02,
+    the state zeros, each integer batch leaf uniform below ``below[its
+    key]`` (0 where unnamed), booleans True."""
+    import torch
+
+    from repro_torch.launch.steps import map_tensors
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def leaf(t, key=None):
+        if t.is_floating_point():
+            return (torch.randn(t.shape, generator=gen, device=device) * 0.02).to(t.dtype)
+        if t.dtype == torch.bool:
+            return torch.ones(t.shape, dtype=torch.bool, device=device)
+        return torch.randint(0, below.get(key, 1), t.shape, generator=gen, device=device,
+                             dtype=t.dtype)
+
+    def batch(tree):
+        if isinstance(tree, dict):
+            return {k: leaf(v, k) if torch.is_tensor(v) else v for k, v in tree.items()}
+        return dataclasses.replace(tree, **{f.name: leaf(getattr(tree, f.name), f.name)
+                                            for f in dataclasses.fields(tree)
+                                            if torch.is_tensor(getattr(tree, f.name))})
+
+    params, state, data = args
+    return (map_tensors(leaf, params),
+            map_tensors(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=device), state),
+            batch(data))
+
+
+def charged_launches(kernels: dict) -> dict:
+    """The wrappers' launch counters that a step's kernel charges stand for
+    (``kernels/_cost.py``): B5's counts every B5 launch, B5ᵀ's and B4's
+    backward among them."""
+    n = {k: kernels.get(k, {}).get("calls", 0) for k in (
+        "flash_attention", "flash_attention_bwd", "seg_mm", "seg_mm_transposed",
+        "embedding_bag", "embedding_bag_backward")}
+    n["seg_mm"] += n["seg_mm_transposed"] + n["embedding_bag_backward"]
+    return n
+
+
+def dryrun_checks(device: str) -> list:
+    """3n (b)'s reduced configurations: (name, arch, shape, config, specs,
+    integer bounds).  On the card the earlier phases' steps at their
+    widths and depths; on the CPU (a rehearsal) the smoke configs."""
+    import torch
+
+    from repro_torch.configs import dlrm_rm2, gcn_cora, gemma2_9b, mixtral_8x22b
+    from repro_torch.configs.common import (LM_SHAPES, RECSYS_SHAPES, gnn_graph_specs,
+                                            recsys_input_specs, sds)
+
+    full = device == "cuda"
+    seq = LM_SHAPES["train_4k"]["seq_len"] if full else 48
+
+    lm = {k: sds((1, seq), torch.int32) for k in ("tokens", "labels")}
+    gemma = (dataclasses.replace(gemma2_9b.full_config(), n_layers=LM_TRAIN_LAYERS) if full
+             else dataclasses.replace(gemma2_9b.smoke_config(), dtype=torch.bfloat16))
+    mixtral = (dataclasses.replace(mixtral_8x22b.full_config(), n_layers=MOE_TRAIN_LAYERS)
+               if full else dataclasses.replace(mixtral_8x22b.smoke_config(),
+                                                dtype=torch.bfloat16))
+    gcn = gcn_cora.full_config() if full else gcn_cora.smoke_config()
+    graph = gnn_graph_specs("minibatch_lg" if full else "full_graph_sm", model="gcn")
+    graph = dataclasses.replace(graph, x=sds((graph.n_nodes, gcn.d_in), torch.float32))
+    dlrm = dlrm_rm2.full_config() if full else dlrm_rm2.smoke_config()
+    rows = RECSYS_SHAPES["train_batch"]["batch"] if full else 256
+    recsys = {k: sds((rows,) + tuple(t.shape[1:]), t.dtype)
+              for k, t in recsys_input_specs(dlrm, "train_batch")[1].items()}
+    return [
+        ("3j (b) dlrm-rm2 train_batch", "dlrm-rm2", "train_batch", dlrm, recsys,
+         {"sparse": dlrm.vocab_size, "labels": 2}),
+        ("3k (ii) gemma2-9b train_4k", "gemma2-9b", "train_4k", gemma, lm,
+         {"tokens": gemma.vocab, "labels": gemma.vocab}),
+        ("3l (b) mixtral-8x22b train_4k", "mixtral-8x22b", "train_4k", mixtral, lm,
+         {"tokens": mixtral.vocab, "labels": mixtral.vocab}),
+        ("3j (a) gcn-cora minibatch_lg", "gcn-cora", "minibatch_lg", gcn, graph,
+         {"edge_src": graph.n_nodes, "edge_dst": graph.n_nodes, "labels": gcn.n_classes}),
+    ]
+
+
+def dryrun_phase(seed: int, device: str, sync) -> dict:
+    """Phase 3n (module docstring): (a) ``python -m repro_torch.launch.dryrun
+    --all`` on the device as a subprocess (fake tensors): every cell's
+    record; (b) each of ``dryrun_checks``' steps once under the cost counter
+    on real tensors (untimed) and traced by ``launch/dryrun.trace_step`` on
+    fake ones: FLOPs and kernel charges equal, the charges equal to the
+    wrappers' launch counters, and the predicted peak against
+    ``max_memory_allocated`` (``peak_share``: measured / predicted)."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.seg_mm import ops as sm_ops
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.launch.hlo_analysis import CostCounter
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.steps import build_cell
+
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) every cell on fake tensors, in worker processes
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    path = os.path.join(tmp, "dryrun_torch.json")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src") + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+                               "--jobs", str(DRYRUN_JOBS), "--device", device, "--out", path],
+                              capture_output=True, text=True, env=env, cwd=ROOT,
+                              timeout=DRYRUN_TIMEOUT)
+        check(proc.returncode == 0, f"3n (a): the dry run exits 0: rc {proc.returncode}\n"
+                                    f"{proc.stdout[-3000:]}\n{proc.stderr[-4000:]}")
+        with open(path) as f:
+            records = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["all_s"] = time.perf_counter() - t0
+    done = [r for r in records if not r["skipped"]]
+    check(len(done) == 37 and len(records) == 40 and all(r["device"] == device for r in done),
+          f"3n (a): 37 cells traced on {device} and 3 skipped: {len(done)} of {len(records)}")
+    out["cells"] = {f"{r['arch']} × {r['shape']}": {
+        "kind": r["kind"], "flops": r["flops"], "flops_bf16": r["flops_bf16"],
+        "kernel_flops": r["kernel_flops"], "kernel_bytes": r["kernel_bytes"],
+        "charges": {k: v["calls"] for k, v in r["kernels"].items()},
+        "peak_bytes": r["peak_bytes"], "argument_bytes_per_dev": r["argument_bytes_per_dev"],
+        "trace_s": r["trace_s"], **({"moe": r["moe"]} if "moe" in r else {})} for r in done}
+    out["skipped"] = [f"{r['arch']} × {r['shape']}" for r in records if r["skipped"]]
+    out["trace_s_total"] = sum(r["trace_s"] for r in done)
+
+    # (b) the earlier phases' steps: a real step under the counter against its fake trace
+    one = AbstractMesh((1, 1), ("data", "model"))
+    checks = {}
+    for i, (name, arch, shape, cfg, specs, below) in enumerate(dryrun_checks(device)):
+        _, step, abstract, _, _, _ = build_cell(arch, shape, one, cfg=cfg, specs=specs)
+        t0 = time.perf_counter()
+        fake = trace_step(step, abstract, device)
+        trace_s = time.perf_counter() - t0
+        args = card_args(abstract, device, seed + 50 + i, below)
+        for mod in (fa_ops, sm_ops, eb_ops):
+            mod.reset_launches()
+        if device == "cuda":
+            sync()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+        with CostCounter(arguments=args) as counter:
+            _, _, metrics = step(*args)
+            sync()
+        real = counter.totals()
+        launched = {**fa_ops.launches, **sm_ops.launches, **eb_ops.launches}
+        launched = {k: launched[k] for k in charged_launches({})}
+        check(np.isfinite(float(metrics["loss"])), f"3n (b) {name}: a finite loss")
+        check(real["flops"] == fake["flops"] and real["kernels"] == fake["kernels"],
+              f"3n (b) {name}: the real step's FLOPs and kernel charges equal the dry run's: "
+              f"{real['flops']} {real['kernels']} against {fake['flops']} {fake['kernels']}")
+        if device == "cuda":
+            check(charged_launches(fake["kernels"]) == launched and any(launched.values()),
+                  f"3n (b) {name}: the charges {charged_launches(fake['kernels'])} equal the "
+                  f"launch counters {launched}")
+        rec = {"flops": fake["flops"], "kernel_flops": fake["kernel_flops"],
+               "kernel_bytes": fake["kernel_bytes"], "kernels": fake["kernels"],
+               "launches": launched, "predicted_peak_bytes": fake["peak_bytes"],
+               "counted_peak_bytes": real["peak_bytes"], "trace_s": trace_s}
+        if device == "cuda":
+            # the step's own bytes: the peak less what the process held beside its arguments
+            rec["measured_peak_bytes"] = (torch.cuda.max_memory_allocated() - before
+                                          + real["argument_bytes"])
+            rec["peak_share"] = rec["measured_peak_bytes"] / fake["peak_bytes"]
+        checks[name] = rec
+        del args, metrics, counter
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    out["steps"] = checks
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 

@@ -2,8 +2,9 @@
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "holds_data"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -16,3 +17,10 @@ def resolve_device(device=None) -> torch.device:
                 "pass device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def holds_data(t: torch.Tensor) -> bool:
+    """False for a tensor that has a shape, a dtype and a device but no
+    data: a fake tensor (``torch._subclasses.FakeTensor``) or one on the
+    ``meta`` device, as the dry run traces (``launch/dryrun.py``)."""
+    return t.device.type != "meta" and not is_fake(t)

@@ -24,6 +24,8 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.core.device import holds_data
+from repro_torch.kernels import _cost
 from repro_torch.kernels.seg_mm.ref import gather_rows
 
 __all__ = [
@@ -57,9 +59,18 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
 def segment_count(segment_ids: torch.Tensor, num_segments: int,
                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Edges per segment, as ``segment_sum`` of ones gives it (exact below
-    2**24 in float32), counted by ``bincount``: no ``index_add_``."""
+    2**24 in float32), counted by ``bincount``: no ``index_add_``.  Ids
+    that hold no data (the dry run's fake tensors) have no values to bound
+    ``bincount``'s length, so they are counted by an int64 ``index_add_``
+    into the same n + 1 slots."""
     n = int(num_segments)
-    return torch.bincount(_ids(segment_ids, n), minlength=n + 1)[:n].to(dtype)
+    ids = _ids(segment_ids, n)
+    if holds_data(ids):
+        counts = torch.bincount(ids, minlength=n + 1)
+    else:
+        counts = torch.zeros(n + 1, dtype=torch.int64, device=ids.device).index_add_(
+            0, ids, torch.ones_like(ids))
+    return counts[:n].to(dtype)
 
 
 def segment_sum_sorted(data, segment_ids, num_segments: int):
@@ -164,11 +175,12 @@ def spmm_di(
 ) -> torch.Tensor:
     """Ã @ X over DI edges.  On CUDA tensors both ``impl`` values run B5
     (``kernels/seg_mm``); on CPU tensors ``'segment'`` is the plain scatter
-    (``gather_scatter``) and ``'kernel'`` B5's plain version.  ``impl`` is
-    kept, and checked, for parity with the reference's config."""
+    (``gather_scatter``) and ``'kernel'`` B5's plain version; under a cost
+    counter every device takes B5's wrapper, which charges the kernel.
+    ``impl`` is kept, and checked, for parity with the reference's config."""
     if impl not in ("segment", "kernel"):
         raise ValueError(f"impl must be 'segment' or 'kernel', got {impl!r}")
-    if impl == "kernel" or x.device.type == "cuda":
+    if impl == "kernel" or x.device.type == "cuda" or _cost.counter is not None:
         from repro_torch.kernels.seg_mm import ops as _ops
 
         return _ops.seg_mm(x, src_idx, dst_idx, num_nodes, edge_weight=edge_weight)

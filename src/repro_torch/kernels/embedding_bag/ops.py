@@ -19,6 +19,14 @@ as the plain version's backward divides), summed in f32 in ascending bag
 order with no atomics, so the result is the same bits run to run, and
 written in the tables' dtype.  Each backward adds one to
 ``launches[EMBEDDING_BAG_BACKWARD]`` and to B5's own count.
+
+Cost: under a cost counter (``kernels/_cost.py``) each forward launch is
+charged ``embedding_bag_cost`` and each backward ``embedding_bag_bwd_cost``,
+phase 5's bounds of ``chip_smoke.py`` from shapes alone: the forward's
+bound reads each distinct (field, row) pair once, which needs the data, so
+every row gathered is charged (marked ``rows_from_shape``); the backward's
+is exact.  Fake and meta inputs, and CPU inputs under a counter, take
+``_cost.charged``.
 """
 from __future__ import annotations
 
@@ -27,11 +35,12 @@ from typing import Dict
 import torch
 from torch.autograd.function import once_differentiable
 
+from repro_torch.kernels import _cost
 from repro_torch.kernels.embedding_bag import kernel, ref
 from repro_torch.kernels.seg_mm import ops as seg_mm_ops
 
 __all__ = ["embedding_bag_fields", "backward_layout", "bag_gradient", "launches",
-           "reset_launches"]
+           "reset_launches", "embedding_bag_cost", "embedding_bag_bwd_cost"]
 
 EMBEDDING_BAG = "embedding_bag"  # B4
 EMBEDDING_BAG_BACKWARD = "embedding_bag_backward"  # B4's backward, on B5
@@ -41,6 +50,43 @@ launches: Dict[str, int] = {EMBEDDING_BAG: 0, EMBEDDING_BAG_BACKWARD: 0}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def embedding_bag_cost(table_shape, idx_shape, esize: int) -> _cost.Charge:
+    """One forward launch: every gathered row (B·F·MH of D elements of
+    ``esize`` bytes), the indices and the (B, F, D) output; an add per
+    gathered element."""
+    _, _, d = table_shape
+    b, f, mh = idx_shape
+    return _cost.Charge(EMBEDDING_BAG, b * f * mh * d,
+                        b * f * mh * d * esize + b * f * mh * 4 + b * f * d * esize,
+                        rows_from_shape=True)
+
+
+def embedding_bag_bwd_cost(table_shape, idx_shape, esize: int) -> _cost.Charge:
+    """One backward launch: the (B, F, D) f32 bag gradients and the indices
+    read once, the dense (F, V, D) gradient written once; an add per
+    gathered element."""
+    f, v, d = table_shape
+    b, _, mh = idx_shape
+    return _cost.Charge(EMBEDDING_BAG_BACKWARD, b * f * mh * d,
+                        b * f * d * 4 + b * f * mh * 4 + f * v * d * esize)
+
+
+def _charged(tables: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """B4 under a cost counter on inputs that launch no kernel (module
+    docstring): what the card's call returns, its backward charged."""
+    b, f, mh = idx.shape
+    d = tables.shape[2]
+    if b * f * d == 0:  # no launch on the card either
+        return tables.new_zeros((b, f, d))
+    es = tables.element_size()
+    backward = (embedding_bag_bwd_cost(tables.shape, idx.shape, es)
+                if mh and tables.numel() else None)
+    return _cost.charged(ref.embedding_bag_ref, (tables, idx),
+                         empty=lambda t, i: t.new_empty((b, f, d)),
+                         forward=embedding_bag_cost(tables.shape, idx.shape, es),
+                         backward=backward, keep=lambda inputs, out: (inputs[1],))
 
 
 def _check(tables: torch.Tensor, idx: torch.Tensor) -> None:
@@ -54,7 +100,7 @@ def _check(tables: torch.Tensor, idx: torch.Tensor) -> None:
                          f"{tuple(tables.shape)}, {tuple(idx.shape)}")
     if tables.device != idx.device:
         raise ValueError(f"{name}: inputs on several devices {[tables.device, idx.device]}")
-    if tables.device.type not in ("cpu", "cuda"):
+    if tables.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: unsupported device {tables.device}")
     if not (tables.is_contiguous() and idx.is_contiguous()):
         raise ValueError(f"{name}: inputs must be contiguous")
@@ -105,8 +151,10 @@ def bag_gradient(grad_out: torch.Tensor, idx: torch.Tensor, table_shape, dtype) 
         return torch.zeros((f, v, d), dtype=dtype, device=idx.device)
     # a tensor divisor: a Python scalar would let CUDA multiply by 1/MH instead
     bags = grad_out.to(torch.float32) / torch.full((), float(mh), device=idx.device)
+    charge_as = (embedding_bag_bwd_cost(table_shape, idx.shape, dtype.itemsize)
+                 if _cost.counter is not None else None)
     grad = seg_mm_ops._launch(bags.reshape(b * f, d).contiguous(), backward_layout(idx, v), None,
-                              f * v)  # every row written: empty rows as zeros
+                              f * v, charge_as=charge_as)  # every row written: empty rows as zeros
     launches[EMBEDDING_BAG_BACKWARD] += 1
     return grad.view(f, v, d).to(dtype)
 
@@ -117,6 +165,8 @@ def _launch(tables: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if out.numel():
         kernel.launch_embedding_bag(tables, idx, out)
         launches[EMBEDDING_BAG] += 1
+        if _cost.counter is not None:
+            _cost.charge(embedding_bag_cost(tables.shape, idx.shape, tables.element_size()))
     return out
 
 
@@ -128,7 +178,11 @@ def embedding_bag_fields(tables: torch.Tensor, idx: torch.Tensor, *, bt: int = 2
     rule.  Differentiable in ``tables`` (on the card through B5)."""
     del bt
     _check(tables, idx)
-    if tables.device.type == "cpu":
+    if _cost.counter is not None and not _cost.launches_kernel(tables):
+        return _charged(tables, idx)
+    if tables.device.type != "cuda":
+        if tables.device.type == "meta":
+            return _charged(tables, idx)
         return ref.embedding_bag_ref(tables, idx)
     if torch.is_grad_enabled() and tables.requires_grad:
         return _EmbeddingBag.apply(tables, idx)

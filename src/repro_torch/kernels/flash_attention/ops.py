@@ -37,12 +37,15 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
+from repro_torch.kernels import _cost
 from repro_torch.kernels.flash_attention import kernel, ref
 
-__all__ = ["flash_attention", "launches", "reset_launches"]
+__all__ = ["flash_attention", "launches", "reset_launches", "kept_pairs", "flash_attention_cost",
+           "flash_attention_bwd_cost"]
 
 FLASH_ATTENTION = "flash_attention"  # B6, every kernel
 COUNTERS = {v: f"{FLASH_ATTENTION}_{v}" for v in kernel.VARIANTS}  # B6 by kernel
@@ -55,6 +58,59 @@ launches: Dict[str, int] = {FLASH_ATTENTION: 0, **{c: 0 for c in COUNTERS.values
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def kept_pairs(sq: int, skv: int, *, causal: bool = True, window: Optional[int] = None,
+               q_offset: int = 0) -> int:
+    """The (query, key) pairs the masks keep, per batch row and head: key j
+    of query i (at position q_offset + i) is kept where j <= q_offset + i
+    under ``causal`` and q_offset + i - j < window under a window."""
+    i = np.arange(sq, dtype=np.int64) + int(q_offset)
+    hi = np.minimum(skv - 1, i) if causal else np.full(sq, skv - 1, dtype=np.int64)
+    lo = np.maximum(0, i - int(window) + 1) if window is not None else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _pairs(q: torch.Tensor, k: torch.Tensor, kw: dict) -> int:
+    return kept_pairs(q.shape[1], k.shape[1], causal=kw["causal"], window=kw["window"],
+                      q_offset=kw["q_offset"])
+
+
+def flash_attention_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kw: dict) -> _cost.Charge:
+    """One forward launch: 4·D FLOP per kept pair and query head (the two
+    products); q, k and v read once and o written once."""
+    b, _, hq, d = q.shape
+    return _cost.Charge(FLASH_ATTENTION, 4 * d * hq * b * _pairs(q, k, kw),
+                        (2 * q.numel() + k.numel() + v.numel()) * q.element_size())
+
+
+def flash_attention_bwd_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             kw: dict) -> _cost.Charge:
+    """One backward launch: 10·D FLOP per kept pair and query head (S, dP,
+    dV, dK, dQ); q, k, v, o and dO read once, dq, dk, dv written once, the
+    row log-sum-exp read."""
+    b, sq, hq, d = q.shape
+    return _cost.Charge(FLASH_ATTENTION_BWD, 10 * d * hq * b * _pairs(q, k, kw),
+                        (2 * (q.numel() + k.numel() + v.numel()) + 2 * q.numel())
+                        * q.element_size() + b * hq * sq * 4)
+
+
+def _charged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kw: dict) -> torch.Tensor:
+    """B6 under a cost counter on inputs that launch no kernel (module
+    docstring): what the card's call returns and keeps for its backward."""
+    if q.numel() == 0 or k.shape[1] == 0:  # no launch on the card either
+        return q.new_zeros(q.shape)
+
+    def keep(inputs, o):  # the card's Function saves q, k, v, o and the log-sum-exp
+        b, sq, hq, _ = q.shape
+        return (*inputs, o, q.new_empty((b, hq, sq), dtype=torch.float32))
+
+    return _cost.charged(lambda q_, k_, v_: ref.flash_attention_ref(q_, k_, v_, **kw), (q, k, v),
+                         empty=lambda q_, k_, v_: q_.new_empty(q_.shape),
+                         forward=flash_attention_cost(q, k, v, kw),
+                         backward=flash_attention_bwd_cost(q, k, v, kw), backward_needs=None,
+                         keep=keep)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int) -> None:
@@ -71,7 +127,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int) -> 
                          "(batch and D equal, Hq a multiple of Hkv)")
     if not (q.device == k.device == v.device):
         raise ValueError(f"{name}: inputs on several devices {[q.device, k.device, v.device]}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: unsupported device {q.device}")
     if q.device.type == "cuda":
         if d > kernel.MAX_D:
@@ -94,6 +150,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kw: dict, want_l
     kernel.launch_flash_attention(q, k, v, o, variant=which, lse=lse, **kw)
     launches[FLASH_ATTENTION] += 1
     launches[COUNTERS[which]] += 1
+    if _cost.counter is not None:
+        _cost.charge(flash_attention_cost(q, k, v, kw))
     return o, lse, which
 
 
@@ -122,6 +180,8 @@ class _FlashAttention(torch.autograd.Function):
                                           forward=ctx.forward, **ctx.kw)
         launches[FLASH_ATTENTION_BWD] += 1
         launches[BWD_COUNTERS[which]] += 1
+        if _cost.counter is not None:
+            _cost.charge(flash_attention_bwd_cost(q, k, v, ctx.kw))
         return dq, dk, dv, None
 
 
@@ -133,10 +193,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     ignored: the kernel has its own tiles and takes any Sq and Skv."""
     del bq, bkv
     _check(q, k, v, q_offset)
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap,
-                                       q_offset=q_offset)
     kw = dict(causal=causal, window=window, cap=cap, q_offset=q_offset)
+    if _cost.counter is not None and not _cost.launches_kernel(q):
+        return _charged(q, k, v, kw)
+    if q.device.type != "cuda":
+        if q.device.type == "meta":
+            return _charged(q, k, v, kw)
+        return ref.flash_attention_ref(q, k, v, **kw)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         if q.numel() == 0 or k.shape[1] == 0:
             raise ValueError(f"{FLASH_ATTENTION}: no backward for empty q, k or v on the card")

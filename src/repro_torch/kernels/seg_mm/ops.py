@@ -36,6 +36,14 @@ freed one's id.  The
 weights are permuted into dst order on every call (one gather of E
 floats), never cached: the GCN makes them under ``torch.inference_mode``
 when it serves, so they could never be matched.
+
+Cost: under a cost counter (``kernels/_cost.py``) each launch is charged
+``seg_mm_cost`` (B5ᵀ's as ``seg_mm_transposed``, B4's backward as its
+own): phase 5's bound of ``chip_smoke.py``, an index and a weight per edge,
+the row pointers, the output written once, and from shapes alone a row of
+x per edge (the bound's distinct rows need the data: the charge is marked
+``rows_from_shape``).  Fake and meta inputs, and CPU inputs under a
+counter, take ``_cost.charged``.
 """
 from __future__ import annotations
 
@@ -45,11 +53,12 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from repro_torch.kernels import _cost
 from repro_torch.kernels.seg_mm import kernel, ref
 
 __all__ = ["SegMMLayout", "LayoutCache", "get_layout", "build_layout", "build_transposed_layout",
-           "transposed_edges", "weights_in_dst_order", "seg_mm", "launches", "reset_launches",
-           "FORWARD", "TRANSPOSE"]
+           "transposed_edges", "weights_in_dst_order", "seg_mm", "seg_mm_cost", "launches",
+           "reset_launches", "FORWARD", "TRANSPOSE"]
 
 SEG_MM = "seg_mm"  # B5, every launch
 SEG_MM_T = "seg_mm_transposed"  # B5ᵀ: B5's launches for the gradient of x
@@ -206,6 +215,33 @@ def get_layout(dst_idx: torch.Tensor, n_nodes: int,
     return LAYOUTS.get(dst_idx, n_nodes, src_idx)
 
 
+def seg_mm_cost(edges: int, d: int, n_rows: int, weighted: bool,
+                name: str = SEG_MM) -> _cost.Charge:
+    """One launch over ``edges`` edges into (n_rows, d) f32: per edge its
+    source index, its weight and a row of x (4·d bytes) read, the row
+    pointers read, the output written once; a multiply and an add per
+    element of a weighted row, an add unweighted."""
+    edge_bytes = 4 + (4 if weighted else 0) + 4 * d
+    return _cost.Charge(name, (2 if weighted else 1) * edges * d,
+                        edges * edge_bytes + (n_rows + 1) * 4 + n_rows * d * 4,
+                        rows_from_shape=True)
+
+
+def _charged(x, src_idx, dst_idx, n_nodes: int, edge_weight) -> torch.Tensor:
+    """B5 under a cost counter on inputs that launch no kernel (module
+    docstring): what the card's call returns, B5ᵀ charged in its backward."""
+    e, d, weighted = src_idx.shape[0], x.shape[1], edge_weight is not None
+    if n_nodes * d == 0:  # no launch on the card either
+        return x.new_zeros((n_nodes, d))
+    backward = seg_mm_cost(e, d, x.shape[0], weighted, SEG_MM_T) if x.shape[0] * d else None
+    return _cost.charged(
+        lambda x_, s_, d_, w_: ref.seg_mm_ref(x_, s_, d_, n_nodes, edge_weight=w_),
+        (x, src_idx, dst_idx, edge_weight),
+        empty=lambda x_, *_: x_.new_empty((n_nodes, d)),
+        forward=seg_mm_cost(e, d, n_nodes, weighted), backward=backward,
+        keep=lambda inputs, out: tuple(t for t in inputs[1:] if t is not None))
+
+
 def _check(x, src_idx, dst_idx, n_nodes: int, edge_weight) -> None:
     name = SEG_MM
     if x.dtype != torch.float32:
@@ -226,7 +262,7 @@ def _check(x, src_idx, dst_idx, n_nodes: int, edge_weight) -> None:
         tensors.append(edge_weight)
     if len({t.device for t in tensors}) != 1:
         raise ValueError(f"{name}: inputs on several devices {[t.device for t in tensors]}")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: unsupported device {x.device}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
@@ -237,9 +273,12 @@ def _check(x, src_idx, dst_idx, n_nodes: int, edge_weight) -> None:
 
 
 def _launch(x: torch.Tensor, layout: SegMMLayout, edge_weight: Optional[torch.Tensor],
-            n_rows: int, *, transposed: bool = False) -> torch.Tensor:
+            n_rows: int, *, transposed: bool = False,
+            charge_as: Optional[_cost.Charge] = None) -> torch.Tensor:
     """B5 over ``layout`` into a new (n_rows, D) f32; a launch on the
-    transposed layout counts as B5's and as B5ᵀ's."""
+    transposed layout counts as B5's and as B5ᵀ's.  Under a cost counter
+    the launch is charged ``charge_as`` (a caller's own kernel, B4's
+    backward) or else B5's (B5ᵀ's) own ``seg_mm_cost``."""
     out = torch.empty((n_rows, x.shape[1]), dtype=torch.float32, device=x.device)
     if out.numel():
         kernel.launch_seg_mm(x, layout.src_sorted, weights_in_dst_order(layout, edge_weight),
@@ -247,6 +286,10 @@ def _launch(x: torch.Tensor, layout: SegMMLayout, edge_weight: Optional[torch.Te
         launches[SEG_MM] += 1
         if transposed:
             launches[SEG_MM_T] += 1
+        if _cost.counter is not None:
+            _cost.charge(charge_as or seg_mm_cost(
+                layout.src_sorted.shape[0], x.shape[1], n_rows, edge_weight is not None,
+                SEG_MM_T if transposed else SEG_MM))
     return out
 
 
@@ -283,7 +326,11 @@ def seg_mm(x: torch.Tensor, src_idx: torch.Tensor, dst_idx: torch.Tensor, n_node
     card); on the card a weight that requires a gradient raises."""
     n_nodes = int(n_nodes)
     _check(x, src_idx, dst_idx, n_nodes, edge_weight)
-    if x.device.type == "cpu":
+    if _cost.counter is not None and not _cost.launches_kernel(x):
+        return _charged(x, src_idx, dst_idx, n_nodes, edge_weight)
+    if x.device.type != "cuda":
+        if x.device.type == "meta":
+            return _charged(x, src_idx, dst_idx, n_nodes, edge_weight)
         return ref.seg_mm_ref(x, src_idx, dst_idx, n_nodes, edge_weight=edge_weight)
     if torch.is_grad_enabled():
         if edge_weight is not None and edge_weight.requires_grad:

@@ -14,17 +14,22 @@ counterpart of the reference's ``--xla_force_host_platform_device_count=8``
 virtual devices.  The same code then spans several cards when a machine
 has them (``make_entity_mesh()``: every card).
 
-Only the property-graph mesh is here.  The production (``"data"``,
-``"model"``) meshes of the LM stack wait for the training port.
+``make_production_mesh`` gives the reference's production meshes, (16,
+16) over (``"data"``, ``"model"``) and (2, 16, 16) over (``"pod"``,
+``"data"``, ``"model"``), as an ``AbstractMesh``: axis names and sizes,
+no devices.  The dry run's spec rules (``launch/sharding.py``) read them;
+the port runs no model-parallel step over them.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["EntityMesh", "make_entity_mesh", "mesh_axes", "dp_axes"]
+__all__ = ["EntityMesh", "AbstractMesh", "make_entity_mesh", "make_production_mesh",
+           "mesh_axes", "dp_axes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +64,36 @@ class EntityMesh:
     def lead(self) -> torch.device:
         """``devices[0]``: where the graph's unsharded arrays live."""
         return self.devices[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """Mesh axes by name and size, with no devices (the reference's
+    ``AbstractMesh(axis_sizes, axis_names)``)."""
+
+    axis_sizes: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+
+    def __post_init__(self):
+        if len(self.axis_sizes) != len(self.axis_names):
+            raise ValueError(f"axis sizes {self.axis_sizes} and names {self.axis_names} differ "
+                             "in length")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """One pod, 16 × 16 over ("data", "model"); two, 2 × 16 × 16 over
+    ("pod", "data", "model")."""
+    if multi_pod:
+        return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+    return AbstractMesh((16, 16), ("data", "model"))
 
 
 def make_entity_mesh(n_devices: Optional[int] = None, *,

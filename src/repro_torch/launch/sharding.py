@@ -15,13 +15,46 @@ components, communities).  That changes where bytes live, not any answer;
 the sharded traversal reads its own per-shard edge blocks
 (``traverse.engine._pad_edges``).
 
-The LM, GNN, GC and DLRM specs wait for the training port.
+The model families' rules (``lm_param_specs`` … ``dlrm_batch_specs``) are
+the reference's, for the dry run (``launch/steps.py``) on a production
+mesh (``launch/mesh.make_production_mesh``): a spec there is a tuple with
+one entry per dimension, None (not split), an axis name, or a tuple of
+axis names, written as the reference's ``PartitionSpec`` writes them
+(``P``: a group of one axis is that axis, an empty group None), so
+``tuple(PartitionSpec(...))`` of the reference equals the port's tuple.
+``shard_shape`` gives a leaf's per-device shape under one.  The port runs
+no model-parallel step: these rules size what one device would hold
+(``argument_bytes_per_dev``) and nothing places tensors by them.
+
+* LM params — Megatron TP over ``model`` (head dim, FFN hidden, vocab),
+  FSDP over the data-parallel axes on the non-TP weight dim when asked;
+  the stacked group leaves' leading n_groups dim stays unsplit.
+* MoE experts — the expert dim over ``model`` when the (virtual) experts
+  divide it, else expert-TP on the FFN hidden dim.
+* Graphs — entity and edge arrays over the data-parallel axes, wide
+  feature dims over ``model``.
+* DLRM — table rows over ``model``, the batch over the data-parallel axes.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Any, Dict, Tuple
 
+from repro_torch.launch.mesh import dp_axes
+
 __all__ = [
+    "P",
+    "shard_shape",
+    "lm_param_specs",
+    "lm_batch_specs",
+    "lm_cache_specs",
+    "opt_state_specs",
+    "gnn_batch_specs",
+    "gnn_param_specs",
+    "gc_batch_specs",
+    "dlrm_param_specs",
+    "dlrm_batch_specs",
     "REPLICATED",
     "LEAD",
     "pg_entity_axes",
@@ -44,8 +77,6 @@ def pg_entity_axes(mesh) -> Tuple[str, ...]:
     paper's block distribution ("each locale only processes the array
     chunk it owns").  The data-parallel axis group when the mesh has a
     ``"data"`` axis, else its sole axis."""
-    from repro_torch.launch.mesh import dp_axes
-
     names = mesh.axis_names
     if "data" in names:
         return dp_axes(mesh)
@@ -119,3 +150,165 @@ def pg_specs(mesh) -> Dict[str, Any]:
         "listd": pg_listd_specs(mesh),
         "prop": pg_prop_spec(mesh),
     }
+
+
+# ------------------------------------------------------------ model families
+def P(*dims) -> Tuple:
+    """A spec tuple as the reference's ``PartitionSpec(*dims)`` writes it:
+    an axis group of one name is that name, an empty group None."""
+    def canon(d):
+        if isinstance(d, (tuple, list)):
+            d = tuple(d)
+            return None if not d else d[0] if len(d) == 1 else d
+        return d
+
+    return tuple(canon(d) for d in dims)
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple) and all(d is None or isinstance(d, (str, tuple)) for d in x)
+
+
+def shard_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    """The per-device shape of a ``shape`` leaf under ``spec`` on
+    ``mesh``: each dim divided by the product of its axes' sizes, rounded
+    up (GSPMD pads a dim that does not divide)."""
+    out = []
+    for i, n in enumerate(shape):
+        d = spec[i] if spec is not None and i < len(spec) else None
+        axes = () if d is None else (d,) if isinstance(d, str) else d
+        out.append(-(-int(n) // math.prod(mesh.shape[a] for a in axes)))
+    return tuple(out)
+
+
+def _dp_size(mesh) -> int:
+    return math.prod(mesh.shape[a] for a in dp_axes(mesh))
+
+
+def lm_param_specs(cfg, mesh, *, fsdp: bool = False) -> Dict:
+    """Spec tree of ``models/transformer.init_params``' tree."""
+    fa = dp_axes(mesh) if fsdp else None  # the FSDP axis group of the non-TP dim
+
+    def layer_specs() -> Dict:
+        s = {"ln1": {"scale": P(None, None)},
+             "wq": {"w": P(None, fa, "model")},
+             "wk": {"w": P(None, fa, "model")},
+             "wv": {"w": P(None, fa, "model")},
+             "wo": {"w": P(None, "model", fa)},
+             "ln2": {"scale": P(None, None)}}
+        if cfg.qkv_bias:
+            for k in ("wq", "wk", "wv"):
+                s[k]["b"] = P(None, "model")
+        if cfg.post_norms:
+            s["ln1b"] = {"scale": P(None, None)}
+            s["ln2b"] = {"scale": P(None, None)}
+        if cfg.n_experts:
+            n_virtual = cfg.n_experts * cfg.moe_virtual_split
+            if n_virtual % mesh.shape["model"] == 0:  # expert parallelism over (virtual) experts
+                up, down = P(None, "model", fa, None), P(None, "model", None, fa)
+            else:  # expert-TP on the hidden dim
+                up, down = P(None, None, fa, "model"), P(None, None, "model", fa)
+            s["moe"] = {"router": {"w": P(None, fa, None)}, "up": up, "down": down}
+            if cfg.gated:
+                s["moe"]["gate"] = up
+        else:
+            s["mlp"] = {"up": {"w": P(None, fa, "model")}, "down": {"w": P(None, "model", fa)}}
+            if cfg.gated:
+                s["mlp"]["gate"] = {"w": P(None, fa, "model")}
+        return s
+
+    specs = {"embed": P("model", fa), "groups": [layer_specs() for _ in cfg.pattern],
+             "final_norm": {"scale": P(None)}}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = {"w": P(fa, "model")}
+    return specs
+
+
+def lm_batch_specs(mesh) -> Dict:
+    dp = dp_axes(mesh)
+    return {"tokens": P(dp, None), "labels": P(dp, None)}
+
+
+def lm_cache_specs(cfg, mesh, batch: int, max_len: int) -> Dict:
+    """Cache (G, B, S, Hkv, Dh): the batch over the data-parallel axes when
+    it divides (else the sequence takes them), KV heads over ``model`` when
+    they divide it, else the sequence takes ``model`` too.  The layer and
+    the written sequence slot keep unsplit dims; ``cur`` is replicated."""
+    dp = dp_axes(mesh)
+    heads_div = cfg.n_kv_heads % mesh.shape["model"] == 0
+    if batch % _dp_size(mesh) == 0:
+        b_ax, s_axes = dp, ()
+    else:
+        b_ax, s_axes = None, dp  # B = 1 long context: the sequence takes dp
+    if not heads_div:
+        s_axes = tuple(s_axes) + ("model",)
+    kv = P(None, b_ax, tuple(s_axes) or None, "model" if heads_div else None, None)
+    specs: Dict[str, Any] = {f"pos{i}": {"k": kv, "v": kv} for i in range(len(cfg.pattern))}
+    specs["cur"] = P()
+    return specs
+
+
+def opt_state_specs(param_specs) -> Dict:
+    """AdamW's state mirrors the params' specs; the count is replicated."""
+    return {"m": param_specs, "v": param_specs, "count": P()}
+
+
+def gnn_batch_specs(mesh, batch) -> Any:
+    """GraphBatch-shaped tree of specs: entity and edge arrays split over
+    the data-parallel axes on their leading dim when it divides, wide (≥ 64)
+    feature dims over ``model`` when it divides them."""
+    dp, n_dp = dp_axes(mesh), _dp_size(mesh)
+    fields = {}
+    for f in dataclasses.fields(batch):
+        if f.name in ("n_nodes", "n_edges", "n_graphs"):
+            continue
+        leaf = getattr(batch, f.name)
+        if leaf is None:
+            fields[f.name] = None
+            continue
+        fields[f.name] = _lead_and_wide(leaf.shape, dp, n_dp, mesh)
+    return dataclasses.replace(batch, **fields)
+
+
+def _lead_and_wide(shape, dp, n_dp: int, mesh) -> Tuple:
+    lead = dp if len(shape) >= 1 and shape[0] % n_dp == 0 else None
+    rest = [None] * (len(shape) - 1)
+    if len(shape) == 2 and shape[1] >= 64 and shape[1] % mesh.shape["model"] == 0:
+        rest[0] = "model"
+    return P(lead, *rest)
+
+
+def gnn_param_specs(params, mesh, *, tp_threshold: int = 256) -> Any:
+    """The last dim of wide (≥ ``tp_threshold``) weights of two or more
+    dims over ``model``; the rest replicated.  ``params``: a tree of
+    tensors (or shapes' abstract tensors)."""
+    def rule(tree):
+        if isinstance(tree, dict):
+            return {k: rule(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [rule(v) for v in tree]
+        shape = tree.shape
+        if len(shape) >= 2 and shape[-1] >= tp_threshold:
+            return P(*([None] * (len(shape) - 1)), "model")
+        return P(*([None] * len(shape)))
+
+    return rule(params)
+
+
+def gc_batch_specs(mesh, batch) -> Any:
+    """GCBatch-shaped tree of specs, by ``gnn_batch_specs``' rule."""
+    dp, n_dp = dp_axes(mesh), _dp_size(mesh)
+    fields = {f.name: _lead_and_wide(getattr(batch, f.name).shape, dp, n_dp, mesh)
+              for f in dataclasses.fields(batch) if not f.name.startswith("n_")}
+    return dataclasses.replace(batch, **fields)
+
+
+def dlrm_param_specs(mesh) -> Dict:
+    return {"tables": P(None, "model", None),  # each table's rows over model
+            "bot": [{"w": P(None, None), "b": P(None)} for _ in range(3)],
+            "top": [{"w": P(None, None), "b": P(None)} for _ in range(3)]}
+
+
+def dlrm_batch_specs(mesh) -> Dict:
+    dp = dp_axes(mesh)
+    return {"dense": P(dp, None), "sparse": P(dp, None, None), "labels": P(dp)}

@@ -30,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import _cost
 from repro_torch.kernels.flash_attention import ops as _ops
 from repro_torch.nn.layers import softcap as _softcap
 
@@ -119,7 +120,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}")
     skv = k.shape[1]
-    if kv_len is None and (impl == "flash" or q.device.type == "cuda"):
+    if kv_len is None and (impl == "flash" or q.device.type == "cuda"
+                           or _cost.counter is not None):
         return _ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap,
                                     q_offset=q_offset)
     if impl in ("auto", "flash"):

@@ -15,7 +15,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import holds_data, resolve_device
 
 __all__ = [
     "init_linear",
@@ -117,8 +117,7 @@ def mlp(p: Dict, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
     return linear(p["down"], h)
 
 
-@functools.lru_cache(maxsize=None)
-def _rope_freq(half: int, theta: float, device: torch.device) -> torch.Tensor:
+def _rope_table(half: int, theta: float, device: torch.device) -> torch.Tensor:
     """RoPE's (half,) f32 frequencies, computed on the host and moved to
     ``device``: the card's ``exp`` may round an entry one ulp away from
     the CPU's, and at position p an angle moves by p ulps of the entry
@@ -128,13 +127,17 @@ def _rope_freq(half: int, theta: float, device: torch.device) -> torch.Tensor:
     return freq.to(device)
 
 
+_rope_freq = functools.lru_cache(maxsize=None)(_rope_table)  # one table per device
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10000.0) -> torch.Tensor:
     """Rotary position embedding.  x: (..., seq, n_heads, d_head); positions
     broadcastable to (..., seq).  Rotates the two halves (GPT-NeoX layout);
     angles in f32, the result cast back to ``x.dtype``."""
     d = x.shape[-1]
     half = d // 2
-    freq = _rope_freq(half, float(theta), x.device)
+    # a dry run's fake tensors get a table of their own: a cached one is of another mode
+    freq = (_rope_freq if holds_data(x) else _rope_table)(half, float(theta), x.device)
     ang = positions[..., None].to(torch.float32) * freq  # (..., seq, half)
     cos = torch.cos(ang)[..., None, :]  # broadcast over heads
     sin = torch.sin(ang)[..., None, :]

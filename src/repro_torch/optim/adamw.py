@@ -22,6 +22,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.device import holds_data
 from repro_torch.optim.tree import flatten, leaves, tree_map, unflatten
 
 __all__ = ["AdamWConfig", "init_state", "apply_updates", "cosine_schedule", "constant_schedule"]
@@ -45,7 +46,12 @@ class AdamWConfig:
 
 
 def _step(step) -> int:
-    return int(step.item()) if torch.is_tensor(step) else int(step)
+    """The step count as an int.  A count that holds no data (a fake or
+    meta tensor: the dry run, ``launch/dryrun.py``) is taken as 0: the
+    schedule's value changes no shape and no operation of the update."""
+    if torch.is_tensor(step):
+        return int(step.item()) if holds_data(step) else 0
+    return int(step)
 
 
 def _warm(cfg: AdamWConfig, step: int) -> np.float32:

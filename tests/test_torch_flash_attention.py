@@ -148,5 +148,6 @@ def test_wrapper_rejects_bad_inputs():
         flash_attention(q[..., :4], k, v)
     with pytest.raises(ValueError, match="devices"):
         flash_attention(q, k.to("meta"), v)
-    with pytest.raises(ValueError, match="unsupported device"):
-        flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    # inputs with no data (the dry run's meta or fake tensors): an empty output of q's shape
+    out = flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert out.device.type == "meta" and out.shape == q.shape and out.dtype == q.dtype
