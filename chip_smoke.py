@@ -222,7 +222,25 @@ none of whose failures is caught:
    (f32 master weights, AdamW), each run once on real tensors under the
    counter (untimed) and traced on fake ones: FLOPs and kernel charges
    equal, the charges equal to the B4/B5/B6 launch counters, the predicted
-   peak beside ``max_memory_allocated`` of the step.
+   peak beside ``max_memory_allocated`` of the step; (c) the partitioned
+   dry run (each LM cell as one device's program on the 16 × 16 mesh,
+   DTensor over a fake process group): (c1) ``PARTITIONED_CELLS``' per-device
+   records from (a) (fake ``cuda`` tensors) equal to the same cells' run on
+   fake CPU tensors (subprocesses started beside (a)), field by field
+   (``PARTITIONED_FIELDS``); (c2) rank 0's step of gemma2-9b and
+   mixtral-8x22b train_4k at full published depth and widths, run on real
+   tensors (its shards, random weights) over the fake group, whose
+   collectives move no data: its FLOPs and kernel charges equal (c1)'s, B6's
+   forward and backward launches (on the rank's local heads) equal the
+   charges, all of them on sm90 / bwd_sm90, ``max_memory_allocated`` less
+   what the process held before within ``PEAK_SHARE`` of the predicted
+   ``peak_bytes_per_dev``; then B6's forward and backward at each layer
+   kind's recorded layout (shape, strides, offset: the K/V head slices of
+   the replicated K/V) on fresh inputs against ``plain_by_kv_head`` within
+   ``B6_TOL`` / ``B6_GRAD_TOL`` (the fake group makes the step's own values
+   meaningless).  Before (c2) the counter is held to one DTensor product's
+   local FLOPs on this torch.  (c2)'s B6 launches are booked on the
+   ``partitioned`` path by the layer kind of their calls.
 
 Kernel launch counts are zeroed right before each path and read right
 after it; a kernel of the path that did not launch fails the run.  The
@@ -383,6 +401,15 @@ GC_BF16_TOL, GC_BF16_LOSS_TOL = 1e-1, 1e-2
 # the dry run (phase 3n): (a) every cell on fake tensors in DRYRUN_JOBS worker processes (the
 # card's host has 8 cores and nothing else runs then), at most DRYRUN_TIMEOUT seconds
 DRYRUN_JOBS, DRYRUN_TIMEOUT = 6, 600
+# (c1) the partitioned trace (one device's program on the production mesh) of these cells on
+# fake cuda tensors equal to the CPU's; (c2) rank 0's real step of the training ones, whose
+# measured peak must lie within PEAK_SHARE of the predicted one
+PARTITIONED_CELLS = [("gemma2-9b", "train_4k"), ("mixtral-8x22b", "train_4k"),
+                     ("qwen2-72b", "prefill_32k"), ("dbrx-132b", "decode_32k")]
+PARTITIONED_FIELDS = ("flops_per_dev", "flops_bf16_per_dev", "kernel_flops_per_dev",
+                      "kernels_per_dev", "peak_bytes_per_dev",
+                      "coll_bytes_per_dev", "coll_by_kind", "coll_count")
+PEAK_SHARE = (0.95, 1.05)
 
 
 def check(cond: bool, what: str) -> None:
@@ -4001,19 +4028,25 @@ def checking_flash(errs: list):
 
 
 @contextlib.contextmanager
-def counting_flash(limit: int = 0):
+def counting_flash(limit: int = 0, layouts: dict | None = None):
     """Count the B6 calls inside the block by layer kind (a call with a
     window is a local layer's) and record the inputs (q, k, v, keyword
-    arguments) of the first ``limit``."""
+    arguments) of the first ``limit``; with ``layouts``, also each layer
+    kind's first call as {kind: (((shape, strides, storage offset, dtype)
+    of q, k, v), keyword arguments)}, which holds no tensor."""
     from repro_torch.kernels.flash_attention import ops
 
     calls, by_layer = [], {"local": 0, "global": 0}
     saved = ops.flash_attention
 
     def flash_attention(q, k, v, **kw):
-        by_layer["local" if kw["window"] is not None else "global"] += 1
+        kind = "local" if kw["window"] is not None else "global"
+        by_layer[kind] += 1
         if len(calls) < limit:
             calls.append((q, k, v, kw))
+        if layouts is not None and kind not in layouts:
+            layouts[kind] = (tuple((tuple(t.shape), tuple(t.stride()), t.storage_offset(),
+                                    t.dtype) for t in (q, k, v)), dict(kw))
         return saved(q, k, v, **kw)
 
     ops.flash_attention = flash_attention
@@ -5231,6 +5264,14 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
               "flops", "kernel_flops", "launches", "predicted_peak_bytes", "measured_peak_bytes",
               "peak_share")} for k, v in dry["steps"].items()}), flush=True)
 
+    print("phase 3n (c) ok: the partitioned records of", len(PARTITIONED_CELLS), "cells on fake",
+          device, "tensors equal the CPU's; rank 0's real training steps count their FLOPs and",
+          "kernel charges, B6's launches equal the charges, the measured peaks within",
+          PEAK_SHARE, "of the predicted", json.dumps({
+              "cells": dry["partitioned"], "cpu_s": dry["partitioned_cpu_s"],
+              "counter": dry["partitioned_counter"], "steps": dry["partitioned_steps"]}),
+          flush=True)
+
     if device == "cuda":
         train = {"gnn": train_gnn["launches"], "dlrm": out["train_dlrm"]["launches"]}
         for entry, launches in ((b1, train["gnn"]["b1"]), (b3, train["gnn"]["b3"])):
@@ -5262,6 +5303,20 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
         for entry, kernel in ((b1, ops.PACKED), (b2, ops.BYTE)):
             entry["launches_by_path"]["mesh"] = mesh_out["launches"][kernel]
             entry["launches"] += mesh_out["launches"][kernel]
+        # 3n (c2): rank 0's B6 launches on its local heads, the partitioned path
+        # (partitioned_step checked that every launch was sm90 / bwd_sm90; the forwards are
+        # booked by the layer kind of their calls)
+        steps = dry["partitioned_steps"]
+        gemma, mixtral = steps["gemma2-9b × train_4k"], steps["mixtral-8x22b × train_4k"]
+        check(mixtral["launches_by_layer"]["global"] == 0,
+              f"3n (c2): mixtral's layers are all local: {mixtral['launches_by_layer']}")
+        for entry, n in (*zip(b6, (gemma["launches_by_layer"]["local"],
+                                   gemma["launches_by_layer"]["global"])),
+                         (b6b[0], gemma["launches_by_variant"]["bwd_sm90"]),
+                         (b6m[0], mixtral["launches_by_layer"]["local"]),
+                         (b6mb, mixtral["launches_by_variant"]["bwd_sm90"])):
+            entry["launches_by_path"]["partitioned"] = n
+            entry["launches"] += n
         out["peak_mem_gib"] = max(torch.cuda.max_memory_allocated() / 2**30,
                                   out["gnn"]["peak_mem_gib"], out["gnn"]["peak_mem_gib_before"],
                                   out["recsys"]["peak_mem_gib"], out["lm"]["peak_mem_gib"],
@@ -5363,7 +5418,33 @@ def dryrun_phase(seed: int, device: str, sync) -> dict:
     on real tensors (untimed) and traced by ``launch/dryrun.trace_step`` on
     fake ones: FLOPs and kernel charges equal, the charges equal to the
     wrappers' launch counters, and the predicted peak against
-    ``max_memory_allocated`` (``peak_share``: measured / predicted)."""
+    ``max_memory_allocated`` (``peak_share``: measured / predicted); (c) the
+    partitioned records and rank 0's real steps (``partitioned_step``).
+    (c1)'s CPU runs start first and run beside (a), (b) and (c2)."""
+    t_phase = time.perf_counter()
+    out = {}
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src") + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    # (c1)'s CPU runs of PARTITIONED_CELLS, in the background from here to (c2)'s end
+    t_cpu, cpu_tmp, cpu_runs = time.perf_counter(), tempfile.mkdtemp(prefix="chip_smoke_cpu_"), []
+    for i, (arch, shape) in enumerate(PARTITIONED_CELLS):
+        cpu_runs.append((os.path.join(cpu_tmp, f"{i}.json"), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             shape, "--device", "cpu", "--out", os.path.join(cpu_tmp, f"{i}.json")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)))
+    try:
+        return _dryrun_checks(seed, device, sync, out, env, cpu_runs, t_cpu, t_phase)
+    finally:
+        for _, proc in cpu_runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(cpu_tmp, ignore_errors=True)
+
+
+def _dryrun_checks(seed: int, device: str, sync, out: dict, env: dict, cpu_runs: list,
+                   t_cpu: float, t_phase: float) -> dict:
+    """``dryrun_phase``'s (a), (b) and (c), with (c1)'s CPU runs under way."""
     import torch
 
     from repro_torch.kernels.embedding_bag import ops as eb_ops
@@ -5374,13 +5455,9 @@ def dryrun_phase(seed: int, device: str, sync) -> dict:
     from repro_torch.launch.mesh import AbstractMesh
     from repro_torch.launch.steps import build_cell
 
-    t_phase = time.perf_counter()
-    out = {}
     # (a) every cell on fake tensors, in worker processes
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     path = os.path.join(tmp, "dryrun_torch.json")
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src") + os.pathsep
-           + os.environ.get("PYTHONPATH", "")}
     t0 = time.perf_counter()
     try:
         proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
@@ -5450,8 +5527,218 @@ def dryrun_phase(seed: int, device: str, sync) -> dict:
         if device == "cuda":
             torch.cuda.empty_cache()
     out["steps"] = checks
+
+    # (c2) rank 0's real step of the training cells against its partitioned trace from (a)
+    out["partitioned_counter"] = counter_books_local_work(device)
+    by_cell = {(r["arch"], r["shape"]): r for r in done}
+    out["partitioned_steps"] = {}
+    for arch, shape in PARTITIONED_CELLS:
+        if by_cell[(arch, shape)]["kind"] == "train":
+            out["partitioned_steps"][f"{arch} × {shape}"] = partitioned_step(
+                arch, shape, by_cell[(arch, shape)], seed, device, sync)
+
+    # (c1) the partitioned records of PARTITIONED_CELLS from (a) against the CPU runs
+    cpu_records = {}
+    for path, proc in cpu_runs:
+        stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT)
+        check(proc.returncode == 0, f"3n (c1): the CPU dry run exits 0: rc "
+                                    f"{proc.returncode}\n{stdout[-2000:]}\n{stderr[-3000:]}")
+        with open(path) as f:
+            (rec,) = json.load(f)
+        cpu_records[(rec["arch"], rec["shape"])] = rec
+    out["partitioned_cpu_s"] = time.perf_counter() - t_cpu
+    for cell in PARTITIONED_CELLS:
+        card, cpu = by_cell[cell], cpu_records[cell]
+        for field in PARTITIONED_FIELDS:
+            check(card[field] == cpu[field], f"3n (c1) {cell}: {field} on fake {device} tensors "
+                                             f"{card[field]} equals the CPU's {cpu[field]}")
+    out["partitioned"] = {f"{a} × {s}": {f: by_cell[(a, s)][f] for f in (
+        *PARTITIONED_FIELDS, "partition_trace_s")} for a, s in PARTITIONED_CELLS}
+
     out["phase_s"] = time.perf_counter() - t_phase
     return out
+
+
+def fill_partitioned(dargs, seed: int, device: str, vocab: int) -> None:
+    """A training step's DTensor arguments (this rank's shards, allocated
+    and unset) filled in place: params normal·0.02, AdamW's state zeros,
+    tokens and labels uniform below ``vocab``."""
+    import torch
+
+    from repro_torch.launch.hlo_analysis import tensors_of
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params, state, batch = dargs
+    for t in tensors_of(params):
+        t.copy_(torch.randn(t.shape, generator=gen, device=device) * 0.02)
+    for t in tensors_of(state):
+        t.zero_()
+    for t in tensors_of(batch):
+        t.random_(0, vocab, generator=gen)
+
+
+def partitioned_step(arch: str, shape: str, record: dict, seed: int, device: str,
+                     sync) -> dict:
+    """3n (c2): rank 0's step of an LM training cell on the production mesh
+    over a fake process group, on real tensors, under the cost counter,
+    against its partitioned trace ``record``."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.hlo_analysis import CostCounter
+    from repro_torch.launch.mesh import fake_device_mesh, make_production_mesh
+    from repro_torch.launch.sharding import tree_named
+    from repro_torch.launch.steps import build_cell, run_partitioned
+
+    name = f"3n (c2) {arch} × {shape}"
+    if device == "cuda":
+        mesh = make_production_mesh()
+        _, step, abstract, in_specs, _, cfg = build_cell(arch, shape, mesh)
+    else:  # a rehearsal: the smoke config on a (2, 4) mesh, traced here
+        from repro_torch.configs.common import sds
+        from repro_torch.configs.registry import get_arch
+        from repro_torch.launch.dryrun import partitioned_fields, trace_partitioned
+        from repro_torch.launch.mesh import AbstractMesh
+
+        mesh = AbstractMesh((2, 4), ("data", "model"))
+        specs = {k: sds((8, 64), torch.int32) for k in ("tokens", "labels")}
+        _, step, abstract, in_specs, _, cfg = build_cell(
+            arch, shape, mesh, cfg=get_arch(arch).smoke_config(), specs=specs)
+        record = partitioned_fields(trace_partitioned(step, abstract, in_specs, mesh, device),
+                                    0.0)
+    t0 = time.perf_counter()
+    layouts = {}
+    with fake_device_mesh(mesh, device) as dmesh:
+        dargs = tree_named(dmesh, in_specs, abstract)
+        fill_partitioned(dargs, seed + 60, device, cfg.vocab)
+        fa_ops.reset_launches()
+        if device == "cuda":
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+        with CostCounter(arguments=dargs) as counter, \
+                counting_flash(layouts=layouts) as (_, by_layer):
+            run_partitioned(step, dargs)
+            sync()
+        real = counter.totals()
+        if device == "cuda":
+            measured = torch.cuda.max_memory_allocated() - before + real["argument_bytes"]
+        del dargs
+    launched = {k: fa_ops.launches[k] for k in (fa_ops.FLASH_ATTENTION, fa_ops.FLASH_ATTENTION_BWD)}
+    by_variant = {**{v: fa_ops.launches[c] for v, c in fa_ops.COUNTERS.items()},
+                  **{v: fa_ops.launches[c] for v, c in fa_ops.BWD_COUNTERS.items()}}
+    check(real["flops"] == record["flops_per_dev"]
+          and real["kernels"] == record["kernels_per_dev"],
+          f"{name}: the real step's FLOPs and kernel charges equal the partitioned trace's: "
+          f"{real['flops']} {real['kernels']} against {record['flops_per_dev']} "
+          f"{record['kernels_per_dev']}")
+    out = {"flops": real["flops"], "kernels": real["kernels"], "launches": launched,
+           "launches_by_variant": by_variant, "launches_by_layer": dict(by_layer),
+           "predicted_peak_bytes": record["peak_bytes_per_dev"],
+           "counted_peak_bytes": real["peak_bytes"], "coll_bytes": real["coll_bytes"],
+           "coll_by_kind": real["coll_by_kind"], "step_s": time.perf_counter() - t0,
+           "n_layers": cfg.n_layers, "mesh": mesh.shape}
+    if device == "cuda":
+        charged = {k: real["kernels"].get(k, {}).get("calls", 0) for k in launched}
+        check(charged == launched and launched[fa_ops.FLASH_ATTENTION] > 0
+              and launched[fa_ops.FLASH_ATTENTION_BWD] > 0,
+              f"{name}: B6's launches {launched} equal its charges {charged}")
+        # every launch on the wgmma/TMA kernels, each forward a call of its layer kind
+        want = {v: 0 for v in by_variant}
+        want.update(sm90=launched[fa_ops.FLASH_ATTENTION],
+                    bwd_sm90=launched[fa_ops.FLASH_ATTENTION_BWD])
+        check(by_variant == want and sum(by_layer.values()) == want["sm90"],
+              f"{name}: B6's launches by kernel {by_variant} all sm90 / bwd_sm90, and by "
+              f"layer kind {dict(by_layer)}")
+        out["measured_peak_bytes"] = measured
+        out["peak_share"] = measured / record["peak_bytes_per_dev"]
+        check(PEAK_SHARE[0] <= out["peak_share"] <= PEAK_SHARE[1],
+              f"{name}: the measured peak {measured} within {PEAK_SHARE} of the predicted "
+              f"{record['peak_bytes_per_dev']} (share {out['peak_share']:.4f})")
+        torch.cuda.empty_cache()
+    # B6 at the rank's own layouts (K/V head slices of the replicated K/V) against its plain
+    # version; the launches here are the check's, after the path's were read
+    out["b6_check"] = b6_at_layouts(layouts, seed + 61, device, name)
+    return out
+
+
+def b6_at_layouts(layouts: dict, seed: int, device: str, what: str) -> dict:
+    """B6's forward and backward on fresh inputs laid out as ``layouts``
+    (``counting_flash``: each layer kind's first call — shape, strides,
+    storage offset and dtype of q, k and v — and its keyword arguments)
+    against ``plain_by_kv_head`` fed the same inputs in a wider type,
+    within ``B6_TOL`` and ``B6_GRAD_TOL``.  On the card the kernels are
+    the path's: sm90, then bwd_sm90."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel, ops
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for kind, (lays, kw) in sorted(layouts.items()):
+        ts = []
+        for (shape, stride, offset, dtype), scale in zip(lays, (0.3, 0.3, 1.0)):
+            n = offset + sum((d - 1) * st for d, st in zip(shape, stride)) + 1
+            base = (torch.randn(n, generator=gen, device=device) * scale).to(dtype)
+            ts.append(base.as_strided(shape, stride, offset).detach().requires_grad_(True))
+        q, k, v = ts
+        name = (f"{what}: B6 at the {kind} layer's layout q {tuple(q.shape)} k {tuple(k.shape)} "
+                f"strides {tuple(k.stride())} offset {k.storage_offset()} {q.dtype} {kw}")
+        forward = kernel.variant(q, k, v)
+        ops.reset_launches()
+        o = ops.flash_attention(q, k, v, **kw)
+        do = torch.randn(o.shape, generator=gen, device=device).to(o.dtype)
+        grads = torch.autograd.grad(o, ts, do)
+        if device == "cuda":
+            which = kernel.bwd_variant(q, forward)
+            check(forward == "sm90" and which == "bwd_sm90"
+                  and ops.launches[ops.COUNTERS[forward]] == ops.launches[ops.FLASH_ATTENTION] == 1
+                  and ops.launches[ops.BWD_COUNTERS[which]]
+                  == ops.launches[ops.FLASH_ATTENTION_BWD] == 1,
+                  f"{name}: one launch of sm90 ({forward}) and one of bwd_sm90 ({which})")
+        wide = torch.float64 if q.dtype == torch.float32 else torch.float32
+        want_o, _, want = plain_by_kv_head(*(t.detach().to(wide) for t in ts), kw, do.to(wide))
+        entry = {"q": list(q.shape), "k": list(k.shape), "k_strides": list(k.stride()),
+                 "k_offset": k.storage_offset(), "kernel": forward,
+                 "max_abs_err": attention_close(o.detach(), want_o, name)}
+        tol = B6_GRAD_TOL[str(q.dtype).split(".")[-1]]
+        for g, w, part in zip(grads, want, ("dq", "dk", "dv")):
+            ok, entry[f"{part}_share"] = grads_within(g, w, tol)
+            check(ok, f"{name}: {part} within {tol} (share {entry[f'{part}_share']:.3g})")
+        out[kind] = entry
+        del ts, q, k, v, o, do, grads, want_o, want
+        ops.reset_launches()
+    check(bool(out), f"{what}: the step called B6")
+    return out
+
+
+def counter_books_local_work(device: str) -> dict:
+    """3n (c): the cost counter on this torch books a DTensor product at
+    the rank's local shapes only (not DTensor's propagation on the global
+    ones) and no collective where none runs: one (64, 32) @ (32, 48)
+    product split (2, 4) on a fake (2, 4) mesh."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch.hlo_analysis import CostCounter
+    from repro_torch.launch.mesh import AbstractMesh, fake_device_mesh
+
+    m, k, n = 64, 32, 48
+    with fake_device_mesh(AbstractMesh((2, 4), ("data", "model")), device) as dmesh, \
+            FakeTensorMode():
+        x = DTensor.from_local(torch.empty((m // 2, k), device=device), dmesh,
+                               [Shard(0), Replicate()], run_check=False)
+        w = DTensor.from_local(torch.empty((k, n // 4), device=device), dmesh,
+                               [Replicate(), Shard(1)], run_check=False)
+        with CostCounter() as counter:
+            x @ w
+    tot = counter.totals()
+    want = 2 * (m // 2) * k * (n // 4)
+    check(tot["flops"] == want and not tot["coll_count"],
+          f"3n (c): the counter books a DTensor product's local FLOPs {want} only: "
+          f"{tot['flops']}, collectives {tot['coll_count']}")
+    return {"flops": tot["flops"], "want": want, "torch": torch.__version__}
 
 
 def main() -> int:

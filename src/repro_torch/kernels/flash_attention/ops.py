@@ -103,8 +103,9 @@ def _charged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kw: dict) -> tor
         return q.new_zeros(q.shape)
 
     def keep(inputs, o):  # the card's Function saves q, k, v, o and the log-sum-exp
-        b, sq, hq, _ = q.shape
-        return (*inputs, o, q.new_empty((b, hq, sq), dtype=torch.float32))
+        b, sq, hq, _ = inputs[0].shape  # (not q: the autograd node holds this closure, and
+        # a tensor it closed over would outlive a checkpoint's release of the saved ones)
+        return (*inputs, o, inputs[0].new_empty((b, hq, sq), dtype=torch.float32))
 
     return _cost.charged(lambda q_, k_, v_: ref.flash_attention_ref(q_, k_, v_, **kw), (q, k, v),
                          empty=lambda q_, k_, v_: q_.new_empty(q_.shape),

@@ -22,15 +22,29 @@ operations, not comparable with XLA's fused figure), ``kernel_flops``,
 ``kernel_bytes`` and ``kernels`` (each kernel's calls, FLOPs, bytes and
 whether its rows were charged from shapes), ``peak_bytes`` (live bytes on
 the one device), ``argument_bytes`` and ``argument_bytes_per_dev`` (under
-the spec rules on the production mesh), ``coll_bytes`` (None: the port
-runs no model-parallel step, ``coll_bytes_reason``) and ``trace_s``.  A
-skipped cell's record says so.  It prints the reference's ``[ok]``,
-``[skip]`` and ``[cached]`` lines and exits 1 if any cell failed.
+the spec rules on the production mesh), ``coll_bytes`` (None: the whole
+step runs on one device, ``coll_bytes_reason``) and ``trace_s``.
 
-Fake tensors cost the host ~0.1–0.5 ms an operation, and a large LM's
-training step dispatches ~10⁵ operations (AdamW's chunked update is much
-of them), so ``--all`` takes minutes on one core; ``--jobs N`` traces the
-cells in N worker processes (the LM training cells first), each on its own.
+Each LM cell is traced a second time as the reference compiles it: as one
+device's program on the production mesh.  ``launch/mesh.fake_device_mesh``
+makes the mesh a ``DeviceMesh`` over a fake process group (256 ranks, 512
+with ``--multi-pod``), the arguments become this rank's fake shards
+(``sharding.tree_named``) and the step runs over DTensors
+(``steps.run_partitioned``) under the counter, which books the
+collectives DTensor issues.  The record gains rank 0's ``flops_per_dev``,
+``flops_bf16_per_dev``, ``kernel_flops_per_dev``, ``kernels_per_dev``,
+``peak_bytes_per_dev``, ``coll_bytes_per_dev``,
+``coll_by_kind`` and ``coll_count`` (the reference's keys and ring model)
+and ``partition_trace_s``.  The GNN and DLRM cells have no partitioned
+program yet (ROADMAP A16c).  A skipped cell's record says so.  It prints
+the reference's ``[ok]``, ``[skip]`` and ``[cached]`` lines and exits 1
+if any cell failed.
+
+Fake tensors cost the host ~0.1–0.5 ms an operation, and DTensor adds its
+sharding propagation to each, so ``--all`` takes minutes on one core;
+``--jobs N`` traces the cells in N worker processes (the LM training cells
+first; an LM cell's whole step and its per-device program in two), each
+with its own process group.
 """
 from __future__ import annotations
 
@@ -47,10 +61,16 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.launch.hlo_analysis import COLL_BYTES_REASON, CostCounter
-from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.launch.steps import argument_bytes_per_dev, build_cell, map_tensors
+from repro_torch.launch.mesh import fake_device_mesh, make_production_mesh
+from repro_torch.launch.sharding import tree_named
+from repro_torch.launch.steps import (argument_bytes_per_dev, build_cell, map_tensors,
+                                      run_partitioned)
 
-__all__ = ["run_cell", "trace_step", "fake_args", "main"]
+__all__ = ["run_cell", "partitioned_record", "trace_step", "trace_partitioned", "fake_args",
+           "main"]
+
+LM_COLL_BYTES_REASON = ("the whole step runs on one device; one device's collectives on the "
+                        "production mesh are coll_bytes_per_dev")
 
 _MOE_FIELDS = ("moe_groups", "moe_virtual_split", "moe_expert_axis", "moe_tp_axis")
 
@@ -74,8 +94,56 @@ def trace_step(step_fn, args, device):
     return counter.totals()
 
 
+def trace_partitioned(step_fn, args, in_specs, mesh, device):
+    """``step_fn`` run once as rank 0's program on ``mesh`` (an
+    ``AbstractMesh``) over a fake process group, its arguments fake shards
+    on ``device`` placed by ``in_specs``, under a ``CostCounter``: its
+    totals, one device's."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    device = torch.device(device)
+    with fake_device_mesh(mesh, device.type) as dmesh, FakeTensorMode():
+        dargs = tree_named(dmesh, in_specs, args)
+        with CostCounter(arguments=dargs) as counter:
+            run_partitioned(step_fn, dargs)
+        del dargs
+    return counter.totals()
+
+
+def partitioned_fields(tot, trace_s: float) -> Dict:
+    """A record's per-device fields from ``trace_partitioned``'s totals."""
+    return {"flops_per_dev": tot["flops"], "flops_bf16_per_dev": tot["flops_bf16"],
+            "kernel_flops_per_dev": tot["kernel_flops"], "kernels_per_dev": tot["kernels"],
+            "peak_bytes_per_dev": tot["peak_bytes"],
+            "coll_bytes_per_dev": tot["coll_bytes"] or 0.0,
+            "coll_by_kind": tot["coll_by_kind"], "coll_count": tot["coll_count"],
+            "partition_trace_s": trace_s}
+
+
+def partitioned_record(arch: str, shape: str, *, multi_pod: bool = False, device=None,
+                       verbose: bool = True) -> Dict:
+    """An LM cell's per-device fields: its step traced as rank 0's program
+    on the production mesh (``trace_partitioned``)."""
+    device = resolve_device(device)
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    _, step_fn, args, in_specs, _, _ = build_cell(arch, shape, mesh)
+    t0 = time.perf_counter()
+    tot = trace_partitioned(step_fn, args, in_specs, mesh, device)
+    rec = {**partitioned_fields(tot, time.perf_counter() - t0),
+           "coll_bytes_reason": LM_COLL_BYTES_REASON}
+    if verbose:
+        print(f"[ok] {arch} × {shape} per device ({'2-pod' if multi_pod else '1-pod'}, "
+              f"{device.type}): trace {rec['partition_trace_s']:.1f}s "
+              f"flops={rec['flops_per_dev']:.3e} peak={rec['peak_bytes_per_dev'] / 2**30:.2f}GiB "
+              f"coll={rec['coll_bytes_per_dev']:.3e}B {rec['coll_by_kind']}", flush=True)
+    return rec
+
+
 def run_cell(arch: str, shape: str, *, multi_pod: bool = False, device=None,
-             verbose: bool = True) -> Optional[Dict]:
+             verbose: bool = True, partitioned: bool = True) -> Optional[Dict]:
+    """One cell's record; an LM cell's per-device fields too unless
+    ``partitioned`` is False (``main --jobs`` traces them in another
+    worker)."""
     device = resolve_device(device)
     mesh = make_production_mesh(multi_pod=multi_pod)
     built = build_cell(arch, shape, mesh)
@@ -112,14 +180,23 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False, device=None,
               f"kernel_flops={rec['kernel_flops']:.3e} kernel_bytes={rec['kernel_bytes']:.3e} "
               f"charges={charges} | peak={rec['peak_bytes'] / 2**30:.2f}GiB "
               f"args/dev={rec['argument_bytes_per_dev'] / 2**30:.3f}GiB", flush=True)
+    if partitioned and _family(arch) == "lm":
+        rec.update(partitioned_record(arch, shape, multi_pod=multi_pod, device=device,
+                                      verbose=verbose))
     return rec
+
+
+def _family(arch: str) -> Optional[str]:
+    """The arch's family; None for an unknown arch (its cell fails where it runs)."""
+    from repro_torch.configs.registry import ARCHS
+
+    return ARCHS[arch].FAMILY if arch in ARCHS else None
 
 
 def _lm_training(arch: str, shape: str) -> bool:
     from repro_torch.configs.common import LM_SHAPES
-    from repro_torch.configs.registry import get_arch
 
-    return get_arch(arch).FAMILY == "lm" and LM_SHAPES[shape]["kind"] == "train"
+    return _family(arch) == "lm" and LM_SHAPES[shape]["kind"] == "train"
 
 
 def main(argv=None) -> None:
@@ -136,7 +213,7 @@ def main(argv=None) -> None:
     ap.add_argument("--jobs", type=int, default=1, help="worker processes tracing cells")
     args = ap.parse_args(argv)
 
-    from repro_torch.configs.registry import arch_shapes, list_cells
+    from repro_torch.configs.registry import SKIPPED_CELLS, arch_shapes, list_cells
 
     if args.all:
         cells = [(a, s) for a, s, _ in list_cells()]
@@ -175,14 +252,19 @@ def main(argv=None) -> None:
             traceback.print_exc()
             failures.append((*cell, str(e)[:200]))
 
-    if args.jobs > 1:
+    if args.jobs > 1:  # a cell's whole-step and per-device traces in two workers
         todo.sort(key=lambda c: not _lm_training(c[0], c[1]))  # the longest traces first
         with ProcessPoolExecutor(args.jobs, mp_context=multiprocessing.get_context("spawn")) \
                 as pool:
-            futures = [(c, pool.submit(run_cell, c[0], c[1], multi_pod=c[2], device=device.type))
-                       for c in todo]
-            for cell, fut in futures:
-                finish(cell, fut.result)
+            futures = []
+            for a, s, mp in todo:
+                kw = dict(multi_pod=mp, device=device.type)
+                whole = pool.submit(run_cell, a, s, partitioned=False, **kw)
+                part = (pool.submit(partitioned_record, a, s, **kw)
+                        if _family(a) == "lm" and (a, s) not in SKIPPED_CELLS else None)
+                futures.append(((a, s, mp), whole, part))
+            for cell, whole, part in futures:
+                finish(cell, lambda: {**whole.result(), **(part.result() if part else {})})
     else:
         for a, s, mp in todo:
             finish((a, s, mp), lambda: run_cell(a, s, multi_pod=mp, device=device))

@@ -17,19 +17,23 @@ has them (``make_entity_mesh()``: every card).
 ``make_production_mesh`` gives the reference's production meshes, (16,
 16) over (``"data"``, ``"model"``) and (2, 16, 16) over (``"pod"``,
 ``"data"``, ``"model"``), as an ``AbstractMesh``: axis names and sizes,
-no devices.  The dry run's spec rules (``launch/sharding.py``) read them;
-the port runs no model-parallel step over them.
+no devices.  The dry run's spec rules (``launch/sharding.py``) read them,
+and ``fake_device_mesh`` makes one a ``torch.distributed`` ``DeviceMesh``
+over a fake process group, on which the dry run traces an LM cell as one
+rank's program (``launch/dryrun.py``; the counterpart of the reference's
+512 placeholder devices).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
 __all__ = ["EntityMesh", "AbstractMesh", "make_entity_mesh", "make_production_mesh",
-           "mesh_axes", "dp_axes"]
+           "fake_device_mesh", "mesh_axes", "dp_axes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +98,29 @@ def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
     if multi_pod:
         return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
     return AbstractMesh((16, 16), ("data", "model"))
+
+
+@contextlib.contextmanager
+def fake_device_mesh(mesh: AbstractMesh, device_type: str = "cuda") -> Iterator:
+    """``mesh`` as a ``torch.distributed`` ``DeviceMesh`` (same axis names
+    and sizes, ``device_type`` "cuda" or "cpu") over a fake process group of
+    ``mesh.size`` ranks, this process being rank 0.  The group exists
+    inside the ``with`` only: a process holds one group at a time, so each
+    worker process makes its own."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    # torch registers its "fake" backend (a group whose collectives move no data) only in
+    # this module, whose creator follows each torch's own process-group API
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised in this process")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=mesh.size)
+    try:
+        yield init_device_mesh(device_type, tuple(mesh.axis_sizes),
+                               mesh_dim_names=tuple(mesh.axis_names))
+    finally:
+        dist.destroy_process_group()
 
 
 def make_entity_mesh(n_devices: Optional[int] = None, *,

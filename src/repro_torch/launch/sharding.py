@@ -22,9 +22,14 @@ one entry per dimension, None (not split), an axis name, or a tuple of
 axis names, written as the reference's ``PartitionSpec`` writes them
 (``P``: a group of one axis is that axis, an empty group None), so
 ``tuple(PartitionSpec(...))`` of the reference equals the port's tuple.
-``shard_shape`` gives a leaf's per-device shape under one.  The port runs
-no model-parallel step: these rules size what one device would hold
-(``argument_bytes_per_dev``) and nothing places tensors by them.
+``shard_shape`` gives a leaf's per-device shape under one.  These rules
+size what one device holds (``argument_bytes_per_dev``), and on a
+``torch.distributed`` ``DeviceMesh`` (``launch/mesh.fake_device_mesh``)
+they place tensors: ``tree_named`` turns a tree of arguments into
+DTensors.  ``P``, ``named`` (a spec's DTensor placements), ``constrain``
+(the reference's ``with_sharding_constraint``) and the other placement
+helpers live in ``nn/partition.py``, below the models that use them, and
+are re-exported here.
 
 * LM params — Megatron TP over ``model`` (head dim, FFN hidden, vocab),
   FSDP over the data-parallel axes on the non-TP weight dim when asked;
@@ -41,7 +46,13 @@ import dataclasses
 import math
 from typing import Any, Dict, Tuple
 
+import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.core.device import holds_data
 from repro_torch.launch.mesh import dp_axes
+from repro_torch.nn.partition import (P, constrain, contiguous_stride, local_call,  # noqa: F401
+                                      local_shard, mesh_placements, named)
 
 __all__ = [
     "P",
@@ -55,6 +66,12 @@ __all__ = [
     "gc_batch_specs",
     "dlrm_param_specs",
     "dlrm_batch_specs",
+    "named",
+    "tree_named",
+    "constrain",
+    "local_call",
+    "local_shard",
+    "mesh_placements",
     "REPLICATED",
     "LEAD",
     "pg_entity_axes",
@@ -153,16 +170,26 @@ def pg_specs(mesh) -> Dict[str, Any]:
 
 
 # ------------------------------------------------------------ model families
-def P(*dims) -> Tuple:
-    """A spec tuple as the reference's ``PartitionSpec(*dims)`` writes it:
-    an axis group of one name is that name, an empty group None."""
-    def canon(d):
-        if isinstance(d, (tuple, list)):
-            d = tuple(d)
-            return None if not d else d[0] if len(d) == 1 else d
-        return d
-
-    return tuple(canon(d) for d in dims)
+def tree_named(dmesh, spec_tree, args):
+    """``args`` (dicts, lists and tuples of tensors) as DTensors on
+    ``dmesh`` placed by the aligned ``spec_tree``; other leaves kept.  A
+    tensor that holds data gives this rank its slice; an abstract one
+    (meta, fake) an empty shard of the local shape on ``dmesh``'s device
+    type (inside a ``FakeTensorMode``: a fake one)."""
+    if torch.is_tensor(args):
+        pl = named(dmesh, spec_tree)
+        shape, offsets = local_shard(args.shape, pl, dmesh)
+        if holds_data(args):
+            local = args[tuple(slice(o, o + n) for o, n in zip(offsets, shape))].contiguous()
+        else:
+            local = torch.empty(shape, dtype=args.dtype, device=dmesh.device_type)
+        return DTensor.from_local(local, dmesh, pl, run_check=False, shape=args.shape,
+                                  stride=contiguous_stride(args.shape))
+    if isinstance(args, dict):
+        return {k: tree_named(dmesh, spec_tree[k], v) for k, v in args.items()}
+    if isinstance(args, (list, tuple)):
+        return type(args)(tree_named(dmesh, s, a) for a, s in zip(args, spec_tree))
+    return args
 
 
 def _is_spec(x) -> bool:

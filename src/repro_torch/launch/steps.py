@@ -14,8 +14,10 @@ for training and prefill, and for the MoE LMs the dispatch groups (one per
 data-parallel shard), ``moe_virtual_split`` (when the experts do not divide
 the model axis but divide into it, as Mixtral's 8 into 16: each expert
 becomes F-slices, which changes the parameter shapes, the capacity and the
-expert FLOPs) and the expert or TP axis.  The port runs each step whole on
-one device; the sharding fields of the configs are kept and unused.
+expert FLOPs) and the expert or TP axis.  A step runs whole on one device
+on plain tensors; on DTensors placed by the specs (``sharding.tree_named``)
+the LM steps run as one rank's program (``run_partitioned``), the configs'
+sharding fields their hints (``models/transformer.py``, ``nn/moe.py``).
 
 Training steps take the gradient by autograd and run the full AdamW update
 (``optim/adamw.apply_updates``, donated as the port's trainer donates it),
@@ -39,7 +41,8 @@ from repro_torch.launch.sharding import P
 from repro_torch.optim import AdamWConfig, apply_updates
 from repro_torch.optim.tree import flatten, unflatten
 
-__all__ = ["build_cell", "map_tensors", "leaf_specs", "argument_bytes_per_dev"]
+__all__ = ["build_cell", "map_tensors", "leaf_specs", "argument_bytes_per_dev",
+           "run_partitioned"]
 
 
 def map_tensors(fn: Callable, tree):
@@ -81,6 +84,16 @@ def argument_bytes_per_dev(args, specs, mesh) -> int:
                for t, s in leaf_specs(args, specs))
 
 
+def run_partitioned(step_fn, dargs):
+    """``step_fn`` on DTensor arguments: one rank's program.  A plain
+    tensor the step makes (positions, masks, constants) is the same on
+    every rank and is taken as replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with implicit_replication():
+        return step_fn(*dargs)
+
+
 def _abstract(shapes, dtype: torch.dtype):
     """A tree of shapes (tuples of ints under dicts and lists) → abstract tensors."""
     if isinstance(shapes, dict):
@@ -105,9 +118,13 @@ def _adamw_state(params) -> Dict:
 def _value_and_grad(loss: Callable, params):
     """(loss(params), the gradient tree) by autograd; a leaf the loss does
     not reach gets zeros, as the reference's gradient gives it."""
+    from torch.distributed.tensor import DTensor, Replicate
+
     flat, spec = flatten(params)
     leaves = [p.detach().requires_grad_(True) for p in flat]
     value = loss(unflatten(spec, leaves))
+    if isinstance(value, DTensor):  # one value on every rank: the gradient's seed
+        value = value.redistribute(value.device_mesh, [Replicate()] * value.device_mesh.ndim)
     grads = torch.autograd.grad(value, leaves, allow_unused=True)
     return value.detach(), unflatten(spec, [torch.zeros_like(p) if g is None else g
                                             for p, g in zip(leaves, grads)])

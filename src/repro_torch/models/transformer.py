@@ -38,6 +38,23 @@ router, ``aten.mm``; not the experts' batched products) and recomputes the
 rest, as ``dots_with_no_batch_dims_saveable``.  A recomputed
 layer launches B6's forward again on the card.
 
+Partitioned (DTensor params and tokens, one rank's program on a device
+mesh: ``launch/dryrun.py``): the reference's sharding hints are honoured
+by ``nn/partition.constrain``, a ``redistribute`` of a DTensor and a
+no-op on a plain tensor — ``forward``'s sequence-parallel carry,
+``P(batch_shard_axes, seq_shard_axis, None)`` after each layer, and the
+MoE's dispatch specs (``nn/moe.py``).  Where DTensor has no sharding rule
+the rank's shard runs under ``local_map``: the embedding gather from the
+vocab-sharded table (each rank reads the rows it holds, a partial sum over
+``model``), the true-label logit of the vocab-sharded logits (likewise),
+decode's cache write on a sequence split over ``model`` (the rank holding
+the slot writes it, its split softmax reduced over the shards), the
+loss's log-sum-exp (each rank's max and sum of exp, all-reduced) and
+attention (``nn/attention.py``).  Products are Megatron's
+(``nn/layers.matmul``), each block's input gathered off the carry and its
+output put back on it (``_gathered``, ``_reduced``).  Plain tensors take
+none of these paths.
+
 Params are plain dicts of tensors; ``Transformer`` wraps them in an
 ``nn.Module``.  Matrices are held in ``cfg.dtype`` and norm scales in f32
 (``init_params``, ``params_from_reference``): the same function as the
@@ -52,14 +69,18 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed import _functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.core.device import resolve_device
-from repro_torch.kernels.seg_mm.ref import gather_rows
+from repro_torch.kernels.seg_mm.ref import gather_ids, gather_rows, in_range
 from repro_torch.models.gnn_common import load_shaped
 from repro_torch.nn.attention import attention
-from repro_torch.nn.layers import label_logits, linear, mlp, rmsnorm, rope, softcap
+from repro_torch.nn.layers import label_logits, linear, matmul, mlp, rmsnorm, rope, softcap
 from repro_torch.nn.moe import moe_ffn
+from repro_torch.nn.partition import P, constrain, local_shard, mesh_placements
 
 __all__ = ["TransformerConfig", "Transformer", "init_params", "params_from_reference",
            "forward", "loss_fn", "prefill", "decode_step", "init_cache"]
@@ -89,7 +110,7 @@ class TransformerConfig:
     # ffn
     act: str = "silu"
     gated: bool = True
-    # moe (None ⇒ dense); the sharding axes are kept, unused
+    # moe (None ⇒ dense); the sharding axes are hints (``nn/moe.py``)
     n_experts: Optional[int] = None
     top_k: int = 2
     moe_renorm: str = "topk"
@@ -99,7 +120,7 @@ class TransformerConfig:
     moe_expert_axis: Optional[str] = None
     moe_tp_axis: Optional[str] = None
     moe_virtual_split: int = 1
-    # sequence and batch sharding (multi-device training, ROADMAP A15): kept, unused
+    # sequence and batch sharding: the sequence-parallel carry's hint
     seq_shard_axis: Optional[str] = None
     batch_shard_axes: Optional[Tuple[str, ...]] = None
     # embedding
@@ -254,10 +275,102 @@ def _embed(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.
     from ids in [-V, V), ``gather_rows``), cast to ``cfg.dtype`` and scaled
     by sqrt(d) where the config says so."""
     b, s = tokens.shape
-    x = gather_rows(params["embed"], tokens.reshape(-1)).reshape(b, s, -1).to(cfg.dtype)
+    if isinstance(params["embed"], DTensor):
+        x = _embed_partitioned(params["embed"], tokens).to(cfg.dtype)
+    else:
+        x = gather_rows(params["embed"], tokens.reshape(-1)).reshape(b, s, -1).to(cfg.dtype)
     if cfg.scale_embed:
         x = x * math.sqrt(cfg.d_model)
     return x
+
+
+def _rank_slice(t, placements, dim: int):
+    """(start, length) along ``dim`` of this rank's shard of DTensor ``t``
+    placed by ``placements``."""
+    local, offsets = local_shard(t.shape, placements, t.device_mesh)
+    return offsets[dim], local[dim]
+
+
+def _vocab_pick(src, ids, dim: int, *, src_pl, src_grad, like, index, pick, finish):
+    """Entries of the DTensor ``src``, whose dim ``dim`` (the vocabulary)
+    is split over ``model``, at the vocabulary ids ``index(ids)``: each
+    rank picks (``pick(shard, ids within it)``) those its shard holds and
+    gives zeros for the rest, a partial sum over ``model``; ``finish(x,
+    ids)`` then marks what the plain path marks.  The embedding gather and
+    the true-label logit of the vocab-sharded table and logits."""
+    mesh = src.device_mesh
+    start, n = _rank_slice(src, src_pl, dim)
+    ids_pl = mesh_placements(mesh, dp=Shard(0), like=like)
+
+    def local(s_l, ids_l):
+        idx = index(ids_l) - start
+        hit = (idx >= 0) & (idx < n)
+        x = pick(s_l, torch.where(hit, idx, 0))
+        hit = hit.reshape(hit.shape + (1,) * (x.dim() - hit.dim()))
+        return finish(torch.where(hit, x, torch.zeros((), dtype=x.dtype, device=x.device)), ids_l)
+
+    return local_map(local, out_placements=(mesh_placements(mesh, dp=Shard(0), model=Partial(),
+                                                            like=like),),
+                     in_placements=(src_pl, ids_pl), in_grad_placements=(src_grad, ids_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(src, ids)
+
+
+def _embed_partitioned(table, tokens: torch.Tensor):
+    """``_embed``'s gather from a DTensor table whose rows are split over
+    ``model`` (``_vocab_pick``; the table's other dim gathered over the
+    data-parallel axes).  The gradient reaches the rows as ``gather_rows``
+    passes it."""
+    mesh, n = table.device_mesh, table.shape[0]
+
+    def finish(x, ids):
+        if torch.is_grad_enabled() and x.requires_grad:
+            x = torch.where(in_range(ids, n)[..., None], x, x.detach())
+        return x
+
+    return _vocab_pick(
+        table, tokens, 0, src_pl=mesh_placements(mesh, model=Shard(0)),
+        src_grad=mesh_placements(mesh, dp=Partial(), model=Shard(0), like=tokens), like=tokens,
+        index=lambda ids: gather_ids(ids, n),
+        pick=lambda t, idx: gather_rows(t, idx.reshape(-1)).reshape(idx.shape + (-1,)),
+        finish=finish)
+
+
+def _gathered(h, cfg: TransformerConfig):
+    """A block's normed input off the sequence-parallel carry: whole
+    sequences, the batch still split (Megatron's sequence parallelism; a
+    no-op without the carry's hint or on a plain tensor)."""
+    if cfg.seq_shard_axis is None:
+        return h
+    return constrain(h, P(cfg.batch_shard_axes, None, None))
+
+
+def _reduced(t, cfg: TransformerConfig):
+    """A block's output (a DTensor) placed as the residual stream: on the
+    sequence-parallel carry where it is hinted (a partial sum over
+    ``model`` reduce-scattered, a whole one split, so that its gradient
+    comes back whole), else with any partial sum reduced (an all-reduce).
+    Anything else as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    if cfg.seq_shard_axis is not None:
+        return constrain(t, P(cfg.batch_shard_axes, cfg.seq_shard_axis, None))
+    if not any(p.is_partial() for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_partial() else p
+                                          for p in t.placements])
+
+
+def _heads(t, n: int, dh: int, *, merge: bool = False):
+    """(B, S, n·dh) → (B, S, n, dh), or back with ``merge``.  A DTensor
+    whose n heads do not divide over ``model`` is first gathered there:
+    its shards split heads, or split them unevenly."""
+    b, s = t.shape[:2]
+    if isinstance(t, DTensor):
+        mesh = t.device_mesh
+        if n % mesh.size(mesh.mesh_dim_names.index("model")):
+            t = t.redistribute(mesh, [Replicate() if a == "model" else p
+                                      for a, p in zip(mesh.mesh_dim_names, t.placements)])
+    return t.reshape(b, s, n * dh) if merge else t.reshape(b, s, n, dh)
 
 
 def _attn_block(lp: Dict, x: torch.Tensor, cfg: TransformerConfig, kind: str, *,
@@ -267,10 +380,10 @@ def _attn_block(lp: Dict, x: torch.Tensor, cfg: TransformerConfig, kind: str, *,
     updated in place."""
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    h = rmsnorm(lp["ln1"], x, plus_one=cfg.post_norms)
-    q = linear(lp["wq"], h).reshape(b, s, hq, dh)
-    k = linear(lp["wk"], h).reshape(b, s, hkv, dh)
-    v = linear(lp["wv"], h).reshape(b, s, hkv, dh)
+    h = _gathered(rmsnorm(lp["ln1"], x, plus_one=cfg.post_norms), cfg)
+    q = _heads(linear(lp["wq"], h), hq, dh)
+    k = _heads(linear(lp["wk"], h), hkv, dh)
+    v = _heads(linear(lp["wv"], h), hkv, dh)
     q = rope(q, positions, theta=cfg.rope_theta)
     k = rope(k, positions, theta=cfg.rope_theta)
     window = cfg.layer_window(kind)
@@ -285,57 +398,117 @@ def _attn_block(lp: Dict, x: torch.Tensor, cfg: TransformerConfig, kind: str, *,
         ring = window is not None and sc == window
         slot = cur % window if ring else cur
         slot = min(max(slot, 0), sc - s)  # dynamic_update_slice clamps its start
-        ck[:, slot:slot + s] = k.to(ck.dtype)
-        cv[:, slot:slot + s] = v.to(cv.dtype)
-        i = torch.arange(sc, device=x.device)
-        if ring:
-            # ring buffer: slot i holds absolute position cur - ((cur - i) mod W)
-            k_pos = cur - torch.remainder(cur - i, window)
-            valid = k_pos >= 0
+        if isinstance(ck, DTensor):
+            o = _decode_partitioned(q, k, v, ck, cv, cur, slot, window if ring else None, cfg)
         else:
-            k_pos = i
-            valid = i <= cur
-        o = _decode_attend(q, ck, cv, k_pos, valid, cur, cfg)
+            ck[:, slot:slot + s] = k.to(ck.dtype)
+            cv[:, slot:slot + s] = v.to(cv.dtype)
+            k_pos, valid = _slot_positions(torch.arange(sc, device=x.device), cur,
+                                           window if ring else None)
+            o = _decode_attend(q, ck, cv, k_pos, valid, cur, cfg)
         new_kv = (ck, cv)
 
-    o = linear(lp["wo"], o.reshape(b, s, hq * dh))
+    o = _reduced(linear(lp["wo"], _heads(o, hq, dh, merge=True)), cfg)
     if cfg.post_norms:
         o = rmsnorm(lp["ln1b"], o, plus_one=True)
     return o, new_kv
 
 
-def _decode_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, k_pos: torch.Tensor,
+def _slot_positions(i: torch.Tensor, cur: int, ring_window: Optional[int]):
+    """(absolute position, holds a written position) of cache slots ``i``:
+    in a ring buffer of ``ring_window`` slots, slot i holds position
+    cur - ((cur - i) mod W); in a linear cache, position i."""
+    if ring_window is not None:
+        k_pos = cur - torch.remainder(cur - i, ring_window)
+        return k_pos, k_pos >= 0
+    return i, i <= cur
+
+
+def _decode_scores(q: torch.Tensor, ck: torch.Tensor, k_pos: torch.Tensor,
                    valid: torch.Tensor, cur: int, cfg: TransformerConfig) -> torch.Tensor:
-    """Direct attention against a (possibly ring-buffered) cache with
-    explicit per-slot absolute positions.  q: (B, 1, Hq, D).  Products in
-    the cache's dtype, sums in f32, as the reference's
-    ``preferred_element_type``; plain torch, as the reference leaves it to
-    XLA."""
+    """Decode's scores (B, Hkv, G, 1, Sc) against a (possibly
+    ring-buffered) cache with explicit per-slot absolute positions, -1e30
+    where a slot holds no position up to ``cur``.  Products in the cache's
+    dtype, sums in f32, as the reference's ``preferred_element_type``."""
     b, sq, hq, dh = q.shape
     hkv = ck.shape[2]
-    g = hq // hkv
-    qg = q.reshape(b, sq, hkv, g, dh).to(ck.dtype)
+    qg = q.reshape(b, sq, hkv, hq // hkv, dh).to(ck.dtype)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
                      ck.to(torch.float32)) * (dh ** -0.5)
     s = softcap(s, cfg.attn_softcap)
     ok = valid & (k_pos <= cur)
-    s = torch.where(ok, s, -1e30)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(cv.dtype).to(torch.float32),
-                     cv.to(torch.float32))
-    return o.reshape(b, sq, hq, dh).to(q.dtype)
+    return torch.where(ok, s, -1e30)
+
+
+def _decode_values(p: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+    """The softmax weights ``p`` (B, Hkv, G, 1, Sc) applied to the cache's
+    values: (B, 1, Hkv, G, D) in f32."""
+    return torch.einsum("bhgqk,bkhd->bqhgd", p.to(cv.dtype).to(torch.float32),
+                        cv.to(torch.float32))
+
+
+def _decode_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, k_pos: torch.Tensor,
+                   valid: torch.Tensor, cur: int, cfg: TransformerConfig) -> torch.Tensor:
+    """Direct attention against a (possibly ring-buffered) cache with
+    explicit per-slot absolute positions.  q: (B, 1, Hq, D).  Plain torch,
+    as the reference leaves it to XLA."""
+    p = torch.softmax(_decode_scores(q, ck, k_pos, valid, cur, cfg), dim=-1)
+    return _decode_values(p, cv).reshape(q.shape).to(q.dtype)
+
+
+def _decode_partitioned(q, k, v, ck, cv, cur: int, slot: int, ring_window: Optional[int],
+                        cfg: TransformerConfig):
+    """Decode's cache write and attention on DTensors, rank by rank: each
+    rank holds the cache's batch, sequence and KV-head shards its
+    placements give (``launch/sharding.lm_cache_specs``), the rank whose
+    sequence shard holds ``slot`` writes the new K/V there, and where the
+    sequence is split the softmax is reduced over its shards (a max and
+    two sums: all-reduces of (B, H, 1) rows and of the output)."""
+    mesh = ck.device_mesh
+    c_pl = tuple(ck.placements)
+    q_pl = tuple(p if p in (Shard(0), Shard(2)) else Replicate() for p in c_pl)
+    seq_dims = [d for d, p in enumerate(c_pl) if p == Shard(1)]
+    start, n = _rank_slice(ck, c_pl, 1)
+
+    def reduce(t, op):
+        for d in seq_dims:
+            t = funcol.all_reduce(t, op, (mesh, d))
+        return t
+
+    def local(q_l, k_l, v_l, ck_l, cv_l):
+        if start <= slot < start + n:
+            ck_l[:, slot - start:slot - start + 1] = k_l.to(ck_l.dtype)
+            cv_l[:, slot - start:slot - start + 1] = v_l.to(cv_l.dtype)
+        k_pos, valid = _slot_positions(start + torch.arange(n, device=q_l.device), cur,
+                                       ring_window)
+        if not seq_dims:
+            return _decode_attend(q_l, ck_l, cv_l, k_pos, valid, cur, cfg)
+        # the softmax over the sequence's shards: their max, then their sums
+        s = _decode_scores(q_l, ck_l, k_pos, valid, cur, cfg)
+        p = torch.exp(s - reduce(s.amax(dim=-1, keepdim=True), "max"))
+        o = _decode_values(p / reduce(p.sum(dim=-1, keepdim=True), "sum"), cv_l)
+        return reduce(o, "sum").reshape(q_l.shape).to(q_l.dtype)
+
+    return local_map(local, out_placements=(q_pl,), in_placements=(q_pl, q_pl, q_pl, c_pl, c_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v, ck, cv)
 
 
 def _ffn_block(lp: Dict, x: torch.Tensor, cfg: TransformerConfig):
-    h = rmsnorm(lp["ln2"], x, plus_one=cfg.post_norms)
+    h = _gathered(rmsnorm(lp["ln2"], x, plus_one=cfg.post_norms), cfg)
     if cfg.n_experts:  # as the reference, the experts' activation is moe_ffn's silu
         b, s, d = h.shape
+        shard_axes = None
+        if cfg.moe_dp_axes is not None:
+            shard_axes = {"dp": cfg.moe_dp_axes, "expert": cfg.moe_expert_axis,
+                          "tp": cfg.moe_tp_axis}
         y, aux = moe_ffn(lp["moe"], h.reshape(b * s, d), top_k=cfg.top_k,
                          capacity_factor=cfg.capacity_factor, renorm=cfg.moe_renorm,
-                         n_groups=cfg.moe_groups, virtual_split=cfg.moe_virtual_split)
+                         n_groups=cfg.moe_groups, virtual_split=cfg.moe_virtual_split,
+                         shard_axes=shard_axes)
         y = y.reshape(b, s, d)
     else:
         y, aux = mlp(lp["mlp"], h, act=cfg.act), 0.0
+    y = _reduced(y, cfg)
     if cfg.post_norms:
         y = rmsnorm(lp["ln2b"], y, plus_one=True)
     return y, aux
@@ -343,14 +516,17 @@ def _ffn_block(lp: Dict, x: torch.Tensor, cfg: TransformerConfig):
 
 def _group(params: Dict, g: int, x: torch.Tensor, positions: torch.Tensor,
            cfg: TransformerConfig):
-    """Pattern group ``g`` (the reference's scan body): (x, its aux losses)."""
+    """Pattern group ``g`` (the reference's scan body): (x, its aux losses).
+    Each layer's output takes the sequence-parallel carry's hint."""
+    sp = (None if cfg.seq_shard_axis is None
+          else P(cfg.batch_shard_axes, cfg.seq_shard_axis, None))
     aux = 0.0
     for i, kind in enumerate(cfg.pattern):
         lp = _layer(params, i, g)
         a, _ = _attn_block(lp, x, cfg, kind, positions=positions)
         x = x + a
         f, a_aux = _ffn_block(lp, x, cfg)
-        x = x + f
+        x = constrain(x + f, sp)
         aux = aux + a_aux
     return x, aux
 
@@ -379,7 +555,7 @@ def forward(params: Dict, tokens: torch.Tensor,
     Under autograd each pattern group is rematerialized per ``cfg.remat``
     (module docstring)."""
     _, s = tokens.shape
-    x = _embed(params, tokens, cfg)
+    x = _reduced(_embed(params, tokens, cfg), cfg)
     positions = torch.arange(s, device=x.device)[None, :]
     aux = 0.0
     records = torch.is_grad_enabled() and (
@@ -397,7 +573,7 @@ def forward(params: Dict, tokens: torch.Tensor,
 
 def _logits(params: Dict, h: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]["w"]
-    lg = h @ w.to(h.dtype)
+    lg = matmul(h, w.to(h.dtype))
     return softcap(lg, cfg.final_softcap)
 
 
@@ -416,11 +592,49 @@ def loss_fn(params: Dict, tokens: torch.Tensor, labels: torch.Tensor,
         hb = h[:, c * chunk:(c + 1) * chunk]
         lb = labels[:, c * chunk:(c + 1) * chunk].to(torch.int64)
         lg = _logits(params, hb, cfg).to(torch.float32)
-        lse = torch.logsumexp(lg, dim=-1)
-        true = label_logits(lg, lb)
+        if isinstance(lg, DTensor):
+            lse, true = _lse_partitioned(lg), _label_logits_partitioned(lg, lb)
+        else:
+            lse, true = torch.logsumexp(lg, dim=-1), label_logits(lg, lb)
         tot = tot + torch.sum(lse - true)
     loss = tot / (b * n_chunks * chunk)
     return loss + 0.01 * aux
+
+
+def _lse_partitioned(lg):
+    """Log-sum-exp over the last dim of DTensor logits whose vocab dim is
+    split over ``model``: each rank's max (an all-reduce of the max, held
+    constant, which leaves the value and its gradient those of
+    ``logsumexp``), then each rank's sum of exp (an all-reduce of the sum).
+    The rank's shard stays local in the backward too."""
+    mesh = lg.device_mesh
+    lg_pl = mesh_placements(mesh, dp=Shard(0), model=Shard(lg.dim() - 1), like=lg)
+    row = mesh_placements(mesh, dp=Shard(0), like=lg)
+    m = local_map(lambda x: x.amax(dim=-1, keepdim=True),
+                  out_placements=(mesh_placements(mesh, dp=Shard(0), model=Partial("max"),
+                                                  like=lg),),
+                  in_placements=(lg_pl,), device_mesh=mesh,
+                  redistribute_inputs=True)(lg.detach())
+    m = m.redistribute(mesh, row)
+    e = local_map(lambda x, mx: torch.sum(torch.exp(x - mx), dim=-1, keepdim=True),
+                  out_placements=(mesh_placements(mesh, dp=Shard(0), model=Partial(),
+                                                  like=lg),),
+                  in_placements=(lg_pl, row), device_mesh=mesh,
+                  redistribute_inputs=True)(lg, m)
+    return (m + torch.log(e.redistribute(mesh, row)))[..., 0]
+
+
+def _label_logits_partitioned(lg, labels: torch.Tensor):
+    """``label_logits`` of DTensor logits whose vocab dim is split over
+    ``model`` (``_vocab_pick``; NaN for a label outside [-V, V) as
+    ``label_logits`` gives it)."""
+    c = lg.shape[-1]
+    lg_pl = mesh_placements(lg.device_mesh, dp=Shard(0), model=Shard(lg.dim() - 1), like=lg)
+    return _vocab_pick(
+        lg, labels, lg.dim() - 1, src_pl=lg_pl, src_grad=lg_pl, like=lg,
+        index=lambda lb: torch.where(lb < 0, lb + c, lb),
+        pick=lambda t, idx: torch.gather(t, -1, idx[..., None])[..., 0],
+        finish=lambda x, lb: x.masked_fill(~in_range(lb, c), float("nan")))
 
 
 # ------------------------------------------------------------------------ decode
@@ -450,7 +664,11 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor, cfg: Transforme
     b, s = tokens.shape
     assert s == 1
     cur = int(cache["cur"])
-    x = _embed(params, tokens, cfg)
+    if isinstance(tokens, DTensor):  # the batch split as the cache splits it
+        c_pl = cache["pos0"]["k"].placements
+        tokens = tokens.redistribute(tokens.device_mesh,
+                                     [Shard(0) if p == Shard(1) else Replicate() for p in c_pl])
+    x = _reduced(_embed(params, tokens, cfg), cfg)
     positions = torch.full((b, 1), cur, dtype=torch.int32, device=x.device)
     for g in range(cfg.n_groups):
         for i, kind in enumerate(cfg.pattern):

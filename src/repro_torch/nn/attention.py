@@ -23,16 +23,28 @@ Routing:
 
 As in the reference, dots run in k's dtype with f32 accumulation, and the
 softmax weights are cast to v's dtype before the second product.
+
+DTensor inputs (the partitioned program, ``launch/dryrun.py``) run each
+rank's shard through ``local_map`` (``nn/partition.local_call``, which
+takes the global shape of a split that may be uneven): the batch over the
+data-parallel axes, the query heads over ``model``.  K and V heads that do not divide over
+``model`` are replicated there (the head reshape has redistributed them)
+and each rank attends with the KV heads its query heads read; their
+gradient comes back as a partial sum over ``model``.  The local call routes
+as above, so each rank's launch of B6 runs (or is charged) on its local
+shapes.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Shard
 
 from repro_torch.kernels import _cost
 from repro_torch.kernels.flash_attention import ops as _ops
 from repro_torch.nn.layers import softcap as _softcap
+from repro_torch.nn.partition import local_call, local_shard, mesh_placements
 
 __all__ = ["attention"]
 
@@ -119,6 +131,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) → (B, Sq, Hq, D)."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}")
+    if isinstance(q, DTensor):
+        return _partitioned(q, k, v, causal=causal, window=window, cap=cap, q_offset=q_offset,
+                            kv_len=kv_len, impl=impl, chunk=chunk)
     skv = k.shape[1]
     if kv_len is None and (impl == "flash" or q.device.type == "cuda"
                            or _cost.counter is not None):
@@ -131,3 +146,31 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
                        kv_len=kv_len)
     return _chunked(q, k, v, causal=causal, window=window, cap=cap, q_offset=q_offset,
                     kv_len=kv_len, chunk=min(chunk, skv))
+
+
+def _partitioned(q, k, v, **kw):
+    """``attention`` on DTensors, rank by rank (module docstring)."""
+    mesh = q.device_mesh
+    hq, hkv = q.shape[2], k.shape[2]
+    m = mesh.size(mesh.mesh_dim_names.index("model"))
+    q_pl = mesh_placements(mesh, dp=Shard(0), model=Shard(2), like=q)
+    split_kv = hkv % m == 0 and hq % m == 0
+    kv_pl = q_pl if split_kv else mesh_placements(mesh, dp=Shard(0), like=q)
+    kv_grad = kv_pl if split_kv else mesh_placements(mesh, dp=Shard(0), model=Partial(), like=q)
+    local_shape, offsets = local_shard(q.shape, q_pl, mesh)
+    start, n_local = offsets[2], local_shape[2]
+
+    def local(q_l, k_l, v_l):
+        if not split_kv:  # the KV heads this rank's query heads read
+            heads = [h // (hq // hkv) for h in range(start, start + n_local)] or [0]
+            first, n_kv = heads[0], heads[-1] - heads[0] + 1
+            if len(heads) % n_kv == 0 and heads == [first + i * n_kv // len(heads)
+                                                     for i in range(len(heads))]:
+                k_l, v_l = k_l[:, :, first:first + n_kv], v_l[:, :, first:first + n_kv]
+            else:  # no grouping a GQA call takes: one KV head per query head
+                ids = torch.tensor(heads, device=k_l.device)
+                k_l, v_l = k_l.index_select(2, ids), v_l.index_select(2, ids)
+        return attention(q_l, k_l, v_l, **kw)
+
+    return local_call(local, (q, k, v), (q_pl, kv_pl, kv_pl), (q_pl, kv_grad, kv_grad), q_pl,
+                      q.shape)

@@ -14,12 +14,15 @@ import math
 from typing import Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.core.device import holds_data, resolve_device
 
 __all__ = [
     "init_linear",
     "linear",
+    "matmul",
     "init_rmsnorm",
     "rmsnorm",
     "init_layernorm",
@@ -47,10 +50,45 @@ def init_linear(generator: torch.Generator, d_in: int, d_out: int, *, bias: bool
 
 
 def linear(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"].to(x.dtype)
+    y = matmul(x, p["w"].to(x.dtype))
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for x (..., D_in) and w (D_in, D_out).  On DTensors each
+    rank multiplies its shards as Megatron's parallel layers do (``w``'s
+    placement on ``model`` says which): ``Shard(1)`` column-parallel (x
+    whole there, the output split on its last dim), ``Shard(0)``
+    row-parallel (x split on its last dim, the output a partial sum),
+    ``Replicate()`` whole.  ``w`` is gathered over the data-parallel axes
+    (FSDP) and its gradient comes back there as a partial sum; x keeps its
+    batch split."""
+    if not isinstance(w, DTensor):
+        return x @ w
+    mesh, last = w.device_mesh, x.dim() - 1
+    w_model = w.placements[mesh.mesh_dim_names.index("model")]
+    row, col = w_model == Shard(0), w_model == Shard(1)
+    x_pl, x_grad, w_pl, w_grad, out_pl = [], [], [], [], []
+    for name, xp in zip(mesh.mesh_dim_names, x.placements):
+        if name == "model":
+            x_pl.append(Shard(last) if row else Replicate())
+            x_grad.append(Shard(last) if row else Partial() if col else Replicate())
+            w_pl.append(w_model)
+            w_grad.append(w_model)
+            out_pl.append(Partial() if row else Shard(last) if col else Replicate())
+        else:  # a data-parallel axis: the batch split (or not) as x has it
+            split = xp == Shard(0)
+            x_pl.append(Shard(0) if split else Replicate())
+            x_grad.append(x_pl[-1])
+            w_pl.append(Replicate())
+            w_grad.append(Partial() if split else Replicate())
+            out_pl.append(x_pl[-1])
+    return local_map(torch.matmul, out_placements=(tuple(out_pl),),
+                     in_placements=(tuple(x_pl), tuple(w_pl)),
+                     in_grad_placements=(tuple(x_grad), tuple(w_grad)), device_mesh=mesh,
+                     redistribute_inputs=True)(x, w)
 
 
 def init_rmsnorm(d: int, dtype: torch.dtype = torch.float32,

@@ -13,6 +13,12 @@ operations.  The reference leaves this to XLA, so there is no hand kernel.
 into the old ones' storage, as the reference's training step donates its
 state to ``jit``; it then works through the leaves a slice at a time, so
 no full-size temporary is made (``dlrm-rm2``'s tables are 6.66 GB).
+
+DTensor leaves (a partitioned step, ``launch/dryrun.py``): each gradient is
+first redistributed to its parameter's placements (a partial sum reduced or
+reduce-scattered), the global norm is DTensor's, and the element-wise
+update runs on each rank's local shards, as the reference's partitioned
+update runs on each device's.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.device import holds_data
 from repro_torch.optim.tree import flatten, leaves, tree_map, unflatten
@@ -156,12 +163,19 @@ def apply_updates(params, grads, state: Dict, cfg: AdamWConfig, *,
         flat_m, flat_v = leaves(state["m"]), leaves(state["v"])
         if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v):
             raise ValueError("apply_updates: params, grads and moments differ in structure")
+        partitioned = bool(flat_p) and isinstance(flat_p[0], DTensor)
+        if partitioned:  # each gradient placed as its parameter
+            flat_g = [g if tuple(g.placements) == tuple(p.placements)
+                      else g.redistribute(p.device_mesh, p.placements)
+                      for p, g in zip(flat_p, flat_g)]
         count = _step(state["count"]) + 1
         gnorm = _global_norm(flat_g)
         scale = None
         if cfg.clip_norm is not None:
             clip = torch.full((), cfg.clip_norm, dtype=torch.float32, device=gnorm.device)
             scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+            if partitioned:
+                scale = scale.full_tensor()  # a replicated scalar: no data moves
         lr = (cosine_schedule if cfg.schedule == "cosine" else constant_schedule)(cfg, count)
         b1c = _F(1) - _F(cfg.b1) ** _F(count)
         b2c = _F(1) - _F(cfg.b2) ** _F(count)
@@ -176,7 +190,9 @@ def apply_updates(params, grads, state: Dict, cfg: AdamWConfig, *,
             if p.shape != g.shape:
                 raise ValueError(f"apply_updates: gradient {tuple(g.shape)} for a parameter "
                                  f"{tuple(p.shape)}")
-        groups = [(p, g.reshape(-1), m, v) for p, g, m, v in zip(new_p, flat_g, new_m, new_v)]
+        local = (lambda t: t.to_local()) if partitioned else (lambda t: t)  # noqa: E731
+        groups = [(local(p), local(g).reshape(-1), local(m), local(v))
+                  for p, g, m, v in zip(new_p, flat_g, new_m, new_v)]
         for P, G, M, V in _batches(groups):
             _update(P, G, M, V, scale, cfg, lr, b1c, b2c)
         m_spec, v_spec = flatten(state["m"])[1], flatten(state["v"])[1]
