@@ -240,7 +240,18 @@ none of whose failures is caught:
    ``B6_TOL`` / ``B6_GRAD_TOL`` (the fake group makes the step's own values
    meaningless).  Before (c2) the counter is held to one DTensor product's
    local FLOPs on this torch.  (c2)'s B6 launches are booked on the
-   ``partitioned`` path by the layer kind of their calls.
+   ``partitioned`` path by the layer kind of their calls; (d) the GNN and
+   DLRM cells partitioned: (d1) ``GNN_PARTITIONED_CELLS``' per-device
+   records from (a) equal to CPU runs started beside (a), field by field;
+   (d2) rank 0's training step of gcn-cora × ogb_products (B5 and B5ᵀ on
+   its ~3.87 M local edges) and dlrm-rm2 × train_batch (B4 forward and
+   backward on its row window of the tables) at full published widths on
+   the 16 × 16 mesh, on real tensors over the fake group
+   (``partitioned_gnn_step``): FLOPs and kernel charges equal (d1)'s, the
+   charges equal to the B4/B5/B5ᵀ launch counters, the peak within
+   ``PEAK_SHARE``; then B5 and B5ᵀ at the recorded local layout and B4 and
+   its backward on the recorded window against their plain versions on
+   fresh inputs.  (d2)'s launches are booked on the ``partitioned`` path.
 
 Kernel launch counts are zeroed right before each path and read right
 after it; a kernel of the path that did not launch fails the run.  The
@@ -410,6 +421,11 @@ PARTITIONED_FIELDS = ("flops_per_dev", "flops_bf16_per_dev", "kernel_flops_per_d
                       "kernels_per_dev", "peak_bytes_per_dev",
                       "coll_bytes_per_dev", "coll_by_kind", "coll_count")
 PEAK_SHARE = (0.95, 1.05)
+# (d1) the partitioned records of these GNN and DLRM cells on fake cuda tensors equal to the
+# CPU's; (d2) rank 0's real training step of GNN_PARTITIONED_STEPS, its peak within PEAK_SHARE
+GNN_PARTITIONED_CELLS = [("gcn-cora", "ogb_products"), ("graphcast", "minibatch_lg"),
+                         ("dlrm-rm2", "train_batch"), ("dlrm-rm2", "retrieval_cand")]
+GNN_PARTITIONED_STEPS = [("gcn-cora", "ogb_products"), ("dlrm-rm2", "train_batch")]
 
 
 def check(cond: bool, what: str) -> None:
@@ -838,7 +854,8 @@ def embedding_bag_checks(device) -> None:
     """B4 against its plain version, bitwise: the reference test's shapes
     (b, f, mh, v, d), RM2's serve shape, ragged D (scalar loads, several
     passes), MH = 0 and B = 0; each in f32 and bf16, with in-range
-    indices and with wrapped and out-of-range ones (NaN bags)."""
+    indices and with wrapped and out-of-range ones (NaN bags), the latter
+    also on a row window of the tables (the partitioned lookup's)."""
     import torch
 
     from repro_torch.kernels.embedding_bag import ops, ref
@@ -857,6 +874,12 @@ def embedding_bag_checks(device) -> None:
                 got = ops.embedding_bag_fields(tables, idx)
                 check(same_bits(got, ref.embedding_bag_ref(tables, idx)),
                       f"B4 B={b} F={f} MH={mh} V={v} D={d} {dtype} wild={wild}")
+                if wild and v >= 3:  # a row window: the middle third of the rows
+                    lo, hi = v // 3, 2 * v // 3
+                    part = tables[:, lo:hi].contiguous()
+                    got = ops.embedding_bag_fields(part, idx, window=(v, lo))
+                    check(same_bits(got, ref.embedding_bag_ref(part, idx, (v, lo))),
+                          f"B4 B={b} F={f} MH={mh} V={v} D={d} {dtype} rows [{lo}, {hi})")
 
 
 def attention_within(got, want) -> bool:
@@ -5272,6 +5295,14 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
               "counter": dry["partitioned_counter"], "steps": dry["partitioned_steps"]}),
           flush=True)
 
+    print("phase 3n (d) ok: the partitioned records of", len(GNN_PARTITIONED_CELLS), "GNN and",
+          "DLRM cells on fake", device, "tensors equal the CPU's; rank 0's real training steps",
+          "count their FLOPs and kernel charges, B4/B5/B5ᵀ's launches equal the charges, the",
+          "measured peaks within", PEAK_SHARE, "of the predicted; B4 and B5 at the steps'",
+          "shapes equal their plain versions", json.dumps({
+              "cells": dry["partitioned_gnn"], "steps": dry["partitioned_gnn_steps"],
+              "steps_s": dry["partitioned_gnn_steps_s"]}), flush=True)
+
     if device == "cuda":
         train = {"gnn": train_gnn["launches"], "dlrm": out["train_dlrm"]["launches"]}
         for entry, launches in ((b1, train["gnn"]["b1"]), (b3, train["gnn"]["b3"])):
@@ -5315,6 +5346,16 @@ def run(edges: int, seed: int, device: str, n_requests: int = 32) -> dict:
                          (b6b[0], gemma["launches_by_variant"]["bwd_sm90"]),
                          (b6m[0], mixtral["launches_by_layer"]["local"]),
                          (b6mb, mixtral["launches_by_variant"]["bwd_sm90"])):
+            entry["launches_by_path"]["partitioned"] = n
+            entry["launches"] += n
+        # 3n (d2): rank 0's B4 launches on its row window, B5 and B5ᵀ on its local edges (and
+        # B4's backward on B5), the partitioned path
+        gcn = dry["partitioned_gnn_steps"]["gcn-cora × ogb_products"]["launches"]
+        dlrm = dry["partitioned_gnn_steps"]["dlrm-rm2 × train_batch"]["launches"]
+        for entry, n in (*((e, dlrm["embedding_bag"]) for e in b4),
+                         (b4b, dlrm["embedding_bag_backward"]),
+                         *((e, gcn["seg_mm"] + dlrm["seg_mm"]) for e in b5),
+                         *((e, gcn["seg_mm_transposed"]) for e in b5t)):
             entry["launches_by_path"]["partitioned"] = n
             entry["launches"] += n
         out["peak_mem_gib"] = max(torch.cuda.max_memory_allocated() / 2**30,
@@ -5427,7 +5468,7 @@ def dryrun_phase(seed: int, device: str, sync) -> dict:
            + os.environ.get("PYTHONPATH", "")}
     # (c1)'s CPU runs of PARTITIONED_CELLS, in the background from here to (c2)'s end
     t_cpu, cpu_tmp, cpu_runs = time.perf_counter(), tempfile.mkdtemp(prefix="chip_smoke_cpu_"), []
-    for i, (arch, shape) in enumerate(PARTITIONED_CELLS):
+    for i, (arch, shape) in enumerate(PARTITIONED_CELLS + GNN_PARTITIONED_CELLS):
         cpu_runs.append((os.path.join(cpu_tmp, f"{i}.json"), subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
              shape, "--device", "cpu", "--out", os.path.join(cpu_tmp, f"{i}.json")],
@@ -5537,6 +5578,14 @@ def _dryrun_checks(seed: int, device: str, sync, out: dict, env: dict, cpu_runs:
             out["partitioned_steps"][f"{arch} × {shape}"] = partitioned_step(
                 arch, shape, by_cell[(arch, shape)], seed, device, sync)
 
+    # (d2) rank 0's real step of the GNN and DLRM training cells against (a)'s trace
+    t0 = time.perf_counter()
+    out["partitioned_gnn_steps"] = {
+        f"{arch} × {shape}": partitioned_gnn_step(arch, shape, by_cell[(arch, shape)], seed,
+                                                  device, sync)
+        for arch, shape in GNN_PARTITIONED_STEPS}
+    out["partitioned_gnn_steps_s"] = time.perf_counter() - t0
+
     # (c1) the partitioned records of PARTITIONED_CELLS from (a) against the CPU runs
     cpu_records = {}
     for path, proc in cpu_runs:
@@ -5554,27 +5603,17 @@ def _dryrun_checks(seed: int, device: str, sync, out: dict, env: dict, cpu_runs:
                                              f"{card[field]} equals the CPU's {cpu[field]}")
     out["partitioned"] = {f"{a} × {s}": {f: by_cell[(a, s)][f] for f in (
         *PARTITIONED_FIELDS, "partition_trace_s")} for a, s in PARTITIONED_CELLS}
+    # (d1) the same for GNN_PARTITIONED_CELLS
+    for cell in GNN_PARTITIONED_CELLS:
+        card, cpu = by_cell[cell], cpu_records[cell]
+        for field in PARTITIONED_FIELDS:
+            check(card[field] == cpu[field], f"3n (d1) {cell}: {field} on fake {device} tensors "
+                                             f"{card[field]} equals the CPU's {cpu[field]}")
+    out["partitioned_gnn"] = {f"{a} × {s}": {f: by_cell[(a, s)][f] for f in (
+        *PARTITIONED_FIELDS, "partition_trace_s")} for a, s in GNN_PARTITIONED_CELLS}
 
     out["phase_s"] = time.perf_counter() - t_phase
     return out
-
-
-def fill_partitioned(dargs, seed: int, device: str, vocab: int) -> None:
-    """A training step's DTensor arguments (this rank's shards, allocated
-    and unset) filled in place: params normal·0.02, AdamW's state zeros,
-    tokens and labels uniform below ``vocab``."""
-    import torch
-
-    from repro_torch.launch.hlo_analysis import tensors_of
-
-    gen = torch.Generator(device=device).manual_seed(seed)
-    params, state, batch = dargs
-    for t in tensors_of(params):
-        t.copy_(torch.randn(t.shape, generator=gen, device=device) * 0.02)
-    for t in tensors_of(state):
-        t.zero_()
-    for t in tensors_of(batch):
-        t.random_(0, vocab, generator=gen)
 
 
 def partitioned_step(arch: str, shape: str, record: dict, seed: int, device: str,
@@ -5610,7 +5649,7 @@ def partitioned_step(arch: str, shape: str, record: dict, seed: int, device: str
     layouts = {}
     with fake_device_mesh(mesh, device) as dmesh:
         dargs = tree_named(dmesh, in_specs, abstract)
-        fill_partitioned(dargs, seed + 60, device, cfg.vocab)
+        fill_partitioned(dargs, seed + 60, device, {"tokens": cfg.vocab, "labels": cfg.vocab})
         fa_ops.reset_launches()
         if device == "cuda":
             sync()
@@ -5659,6 +5698,230 @@ def partitioned_step(arch: str, shape: str, record: dict, seed: int, device: str
     # B6 at the rank's own layouts (K/V head slices of the replicated K/V) against its plain
     # version; the launches here are the check's, after the path's were read
     out["b6_check"] = b6_at_layouts(layouts, seed + 61, device, name)
+    return out
+
+
+def fill_partitioned(dargs, seed: int, device: str, below: dict) -> None:
+    """A training step's DTensor arguments (this rank's shards, allocated
+    and unset) filled in place as ``card_args`` fills whole ones: params and
+    float batch leaves normal·0.02, AdamW's state zeros, each integer batch
+    leaf uniform below ``below[its key]`` (0 where unnamed), booleans True."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.hlo_analysis import tensors_of
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params, state, batch = dargs
+    with torch.no_grad():
+        for t in tensors_of(params):
+            t.copy_(torch.randn(t.shape, generator=gen, device=device) * 0.02)
+        for t in tensors_of(state):
+            t.zero_()
+        fields = (batch.items() if isinstance(batch, dict) else
+                  ((f.name, getattr(batch, f.name)) for f in dataclasses.fields(batch)))
+        for key, leaf in fields:
+            if not isinstance(leaf, DTensor):
+                continue
+            t = leaf.to_local()
+            if t.is_floating_point():
+                t.copy_(torch.randn(t.shape, generator=gen, device=device) * 0.02)
+            elif t.dtype == torch.bool:
+                t.fill_(True)
+            else:
+                t.random_(0, below.get(key, 1), generator=gen)
+
+
+@contextlib.contextmanager
+def recording_b4_b5(calls: dict):
+    """The shapes of every B5 call made through ``seg_mm`` and every B4
+    call made through ``embedding_bag_fields`` inside the block, once each
+    (``calls["b5"]``: (x shape, edges, rows, weighted); ``calls["b4"]``:
+    (tables' shape, dtype, ids' shape, window)); no tensor is kept."""
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.seg_mm import ops as sm_ops
+
+    saved = sm_ops.seg_mm, eb_ops.embedding_bag_fields
+
+    def seg_mm(x, src_idx, dst_idx, n_nodes, *, edge_weight=None):
+        key = (tuple(x.shape), int(src_idx.shape[0]), int(n_nodes), edge_weight is not None)
+        calls.setdefault("b5", {})[key] = None
+        return saved[0](x, src_idx, dst_idx, n_nodes, edge_weight=edge_weight)
+
+    def bags(tables, idx, *, bt=256, window=None):
+        key = (tuple(tables.shape), tables.dtype, tuple(idx.shape), window)
+        calls.setdefault("b4", {})[key] = None
+        return saved[1](tables, idx, bt=bt, window=window)
+
+    sm_ops.seg_mm, eb_ops.embedding_bag_fields = seg_mm, bags
+    try:
+        yield calls
+    finally:
+        sm_ops.seg_mm, eb_ops.embedding_bag_fields = saved
+
+
+def b4_b5_at_shapes(calls: dict, seed: int, device: str, what: str) -> dict:
+    """B5 and B5ᵀ at each recorded (x, edges, rows) shape, and B4 and its
+    backward on each recorded window, on fresh inputs (ids uniform below
+    the rows; B4's also in [-V, -1] and beyond V) against their plain
+    versions: B4 bit for bit, the sums within ``SUM_RTOL`` of Σ|terms|."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.embedding_bag import ref as eb_ref
+    from repro_torch.kernels.seg_mm import ops as sm_ops
+    from repro_torch.kernels.seg_mm import ref as sm_ref
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {"b5": [], "b4": []}
+
+    def grad_of(fn, x, cot):
+        xg = x.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(fn(xg), xg, cot)
+        return g
+
+    for (n_src, d), e, n, weighted in calls.get("b5", {}):
+        x = torch.randn((n_src, d), generator=gen, device=device)
+        src = torch.randint(0, n_src, (e,), generator=gen, device=device, dtype=torch.int32)
+        dst = torch.randint(0, n, (e,), generator=gen, device=device, dtype=torch.int32)
+        w = torch.rand(e, generator=gen, device=device) if weighted else None
+        cot = torch.randn((n, d), generator=gen, device=device)
+        name = f"{what}: B5 at x ({n_src}, {d}), {e} edges into {n} rows, weighted={weighted}"
+        got, want = sm_ops.seg_mm(x, src, dst, n, edge_weight=w), sm_ref.seg_mm_ref(
+            x, src, dst, n, edge_weight=w)
+        aw = None if w is None else w.abs()
+        check(sums_close(got, want, sm_ref.seg_mm_ref(x.abs(), src, dst, n, edge_weight=aw)),
+              name)
+        got = grad_of(lambda t: sm_ops.seg_mm(t, src, dst, n, edge_weight=w), x, cot)
+        want = grad_of(lambda t: sm_ref.seg_mm_ref(t, src, dst, n, edge_weight=w), x, cot)
+        scale = grad_of(lambda t: sm_ref.seg_mm_ref(t, src, dst, n, edge_weight=aw), x, cot.abs())
+        check(sums_close(got, want, scale), name + ": B5ᵀ")
+        out["b5"].append({"x": [n_src, d], "edges": e, "rows": n, "weighted": weighted,
+                          "max_abs_err": float((got - want).abs().max())})
+        del x, src, dst, w, cot, got, want, scale
+    for shape, dtype, idx_shape, window in calls.get("b4", {}):
+        v, lo = window if window is not None else (shape[1], 0)
+        tables = (torch.randn(shape, generator=gen, device=device) * 0.1).to(dtype)
+        idx = torch.randint(-v - 3, v + 3, idx_shape, generator=gen, device=device,
+                            dtype=torch.int32)
+        cot = torch.randn(idx_shape[:2] + shape[2:], generator=gen, device=device).to(dtype)
+        name = f"{what}: B4 on rows [{lo}, {lo + shape[1]}) of {v}, ids {idx_shape} {dtype}"
+        check(same_bits(eb_ops.embedding_bag_fields(tables, idx, window=window),
+                        eb_ref.embedding_bag_ref(tables, idx, window)), name)
+        got = grad_of(lambda t: eb_ops.embedding_bag_fields(t, idx, window=window), tables, cot)
+        wide = tables.float()
+        want = grad_of(lambda t: eb_ref.embedding_bag_ref(t, idx, window), wide, cot.float())
+        scale = grad_of(lambda t: eb_ref.embedding_bag_ref(t, idx, window), wide,
+                        cot.float().abs())
+        check(got.dtype == dtype and sums_close(got.float(), want, scale), name + ": backward")
+        out["b4"].append({"tables": list(shape), "ids": list(idx_shape), "window": list(window),
+                          "in_window": float(((idx >= lo) & (idx < lo + shape[1])).float()
+                                             .mean())})
+        del tables, idx, cot, got, want, scale, wide
+    check(bool(out["b5"] or out["b4"]), f"{what}: the step called B4 or B5")
+    return out
+
+
+def partitioned_gnn_step(arch: str, shape: str, record: dict, seed: int, device: str,
+                         sync) -> dict:
+    """3n (d2): rank 0's training step of a GNN or DLRM cell on the
+    production mesh over a fake process group, on real tensors, under the
+    cost counter, against its partitioned trace ``record``; then B4/B5 at
+    the step's recorded shapes (``b4_b5_at_shapes``)."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.seg_mm import ops as sm_ops
+    from repro_torch.launch.hlo_analysis import CostCounter
+    from repro_torch.launch.mesh import fake_device_mesh, make_production_mesh
+    from repro_torch.launch.sharding import tree_named
+    from repro_torch.launch.steps import build_cell, run_partitioned
+
+    name = f"3n (d2) {arch} × {shape}"
+    if device == "cuda":
+        mesh = make_production_mesh()
+        _, step, abstract, in_specs, _, cfg = build_cell(arch, shape, mesh)
+    else:  # a rehearsal: the smoke config at reduced sizes on a (2, 4) mesh, traced here
+        from repro_torch.configs import dlrm_rm2, gcn_cora
+        from repro_torch.configs.common import gnn_graph_specs, recsys_input_specs, sds
+        from repro_torch.launch.dryrun import partitioned_fields, trace_partitioned
+        from repro_torch.launch.mesh import AbstractMesh
+
+        mesh = AbstractMesh((2, 4), ("data", "model"))
+        if arch == "gcn-cora":
+            cfg = gcn_cora.smoke_config()
+            specs = gnn_graph_specs("full_graph_sm", model="gcn")
+            specs = dataclasses.replace(specs, x=sds((specs.n_nodes, cfg.d_in), torch.float32))
+        else:
+            cfg = dlrm_rm2.smoke_config()
+            specs = {k: sds((256,) + tuple(t.shape[1:]), t.dtype)
+                     for k, t in recsys_input_specs(cfg, "train_batch")[1].items()}
+        _, step, abstract, in_specs, _, cfg = build_cell(arch, shape, mesh, cfg=cfg, specs=specs)
+        record = partitioned_fields(trace_partitioned(step, abstract, in_specs, mesh, device),
+                                    0.0)
+    batch = abstract[-1]
+    below = ({"sparse": cfg.vocab_size, "labels": 2} if arch == "dlrm-rm2" else
+             {"edge_src": batch.n_nodes, "edge_dst": batch.n_nodes, "labels": cfg.n_classes})
+    t0 = time.perf_counter()
+    calls = {}
+    with fake_device_mesh(mesh, device) as dmesh:
+        dargs = tree_named(dmesh, in_specs, abstract)
+        fill_partitioned(dargs, seed + 70, device, below)
+        sm_ops.reset_launches()
+        eb_ops.reset_launches()
+        sm_ops.LAYOUTS.__init__()  # B5's cache empty: what it holds after is the step's
+        if device == "cuda":
+            # the process's one-off allocations (cuBLAS's workspace) made before the step's
+            torch.ones((8, 8), device=device) @ torch.ones((8, 8), device=device)
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+        with CostCounter(arguments=dargs) as counter, recording_b4_b5(calls):
+            run_partitioned(step, dargs)
+            sync()
+        real = counter.totals()
+        if device == "cuda":
+            measured = torch.cuda.max_memory_allocated() - before + real["argument_bytes"]
+        del dargs
+    launched = {**sm_ops.launches, **eb_ops.launches}
+    launched = {k: launched[k] for k in ("seg_mm", "seg_mm_transposed", "embedding_bag",
+                                         "embedding_bag_backward")}
+    # what B5's layout cache holds after the step, which the trace does not model: the
+    # forward and transposed layouts of the rank's edges (order, row pointers, src in order)
+    layout_bytes = sum(t.numel() * t.element_size() for _, lay in sm_ops.LAYOUTS._held.values()
+                       for t in (lay.order, lay.row_ptr, lay.src_sorted) if t is not None)
+    check(real["flops"] == record["flops_per_dev"]
+          and real["kernels"] == record["kernels_per_dev"],
+          f"{name}: the real step's FLOPs and kernel charges equal the partitioned trace's: "
+          f"{real['flops']} {real['kernels']} against {record['flops_per_dev']} "
+          f"{record['kernels_per_dev']}")
+    out = {"flops": real["flops"], "kernels": real["kernels"], "launches": launched,
+           "predicted_peak_bytes": record["peak_bytes_per_dev"],
+           "counted_peak_bytes": real["peak_bytes"], "coll_bytes": real["coll_bytes"],
+           "coll_by_kind": real["coll_by_kind"], "step_s": time.perf_counter() - t0,
+           "layout_bytes": layout_bytes, "mesh": mesh.shape,
+           "calls": {k: [list(map(str, c)) for c in v]
+                                         for k, v in calls.items()}}
+    if device == "cuda":
+        charged = charged_launches(real["kernels"])
+        want = {k: charged[k] for k in launched}
+        kernels = (("seg_mm", "seg_mm_transposed") if arch == "gcn-cora"
+                   else ("embedding_bag", "embedding_bag_backward"))
+        check(want == launched and all(launched[k] > 0 for k in kernels),
+              f"{name}: the launches {launched} equal the charges {want}, {kernels} launched")
+        out["measured_peak_bytes"] = measured
+        out["peak_share"] = measured / record["peak_bytes_per_dev"]
+        check(PEAK_SHARE[0] <= out["peak_share"] <= PEAK_SHARE[1],
+              f"{name}: the measured peak {measured} within {PEAK_SHARE} of the predicted "
+              f"{record['peak_bytes_per_dev']} (share {out['peak_share']:.4f})")
+        torch.cuda.empty_cache()
+    # the kernels at the rank's own shapes against their plain versions; these launches are
+    # the check's, after the path's were read
+    out["kernel_check"] = b4_b5_at_shapes(calls, seed + 71, device, name)
+    sm_ops.reset_launches()
+    eb_ops.reset_launches()
+    if device == "cuda":
+        torch.cuda.empty_cache()
     return out
 
 

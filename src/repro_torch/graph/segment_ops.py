@@ -17,16 +17,32 @@ the reference's gather does (``ref.gather_rows``).
 Ã·X product, which runs the CUDA kernel B5 (``kernels/seg_mm``) on CUDA
 tensors whatever ``impl`` says; on CPU tensors ``impl='segment'`` is the
 plain scatter and ``impl='kernel'`` B5's plain version.
+
+Over DTensors (one rank's program on a device mesh, ``launch/dryrun.py``)
+``gather_rows``, ``segment_sum``, ``segment_count`` and ``spmm_di`` (so
+``degree_norm``, ``segment_mean`` and ``gather_scatter`` too) run as
+``nn/partition.local_call``s placed by ``partition.gather_plan`` and
+``scatter_plan``: each rank gathers from the node table made whole along
+its rows, scatters its own edges into a ``Partial`` (n, ...) table, and
+that table is reduced to ``partition.node_placements``' rule.  No index
+crosses a collective: the ids keep their split, or take a local chunk of
+it.  ``spmm_di`` hands B5 the edges' local tensors themselves
+(``DTensor._local_tensor``), the same objects on every call, so both GCN
+layers and the backward find B5's layouts in its cache as on one device.
+A plain tensor takes none of these paths.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Shard
 
 from repro_torch.core.device import holds_data
 from repro_torch.kernels import _cost
-from repro_torch.kernels.seg_mm.ref import gather_rows
+from repro_torch.kernels.seg_mm import ref
+from repro_torch.nn.partition import (as_dtensor, contiguous_stride, gather_plan, local_call,
+                                      mesh_of, node_placements, scatter_plan)
 
 __all__ = [
     "segment_sum_sorted",
@@ -39,7 +55,27 @@ __all__ = [
     "gather_scatter",
     "spmm_di",
     "degree_norm",
+    "gather_rows",
 ]
+
+
+def _summed(local_fn, args, in_placements, in_grad_placements, out, shape, mesh):
+    """``local_fn`` on the local shards (``local_call``), its ``Partial``
+    (n, ...) table reduced to ``node_placements``' rule."""
+    table = local_call(local_fn, args, in_placements, in_grad_placements, out, shape)
+    return table.redistribute(mesh, node_placements(mesh, shape[0], out))
+
+
+def gather_rows(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``kernels/seg_mm/ref.gather_rows`` (the reference's ids and
+    gradient); over DTensors a ``local_call`` placed by ``gather_plan``."""
+    mesh = mesh_of(x, ids)
+    if mesh is None:
+        return ref.gather_rows(x, ids)
+    x, ids = as_dtensor(x, mesh), as_dtensor(ids, mesh)
+    x_in, grad, out = gather_plan(x, ids)
+    return local_call(ref.gather_rows, (x, ids), (x_in, ids.placements), (grad, None), out,
+                      tuple(ids.shape) + tuple(x.shape[1:]))
 
 
 def _ids(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -52,6 +88,12 @@ def _ids(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     """(E, ...) data summed per segment → (num_segments, ...); empty → 0."""
     n = int(num_segments)
+    mesh = mesh_of(data, segment_ids)
+    if mesh is not None:
+        data, ids = as_dtensor(data, mesh), as_dtensor(segment_ids, mesh)
+        data_in, ids_in, out = scatter_plan(data, ids)
+        return _summed(lambda d, i: segment_sum(d, i, n), (data, ids), (data_in, ids_in),
+                       (data_in, None), out, (n,) + tuple(data.shape[1:]), mesh)
     out = torch.zeros((n + 1,) + tuple(data.shape[1:]), dtype=data.dtype, device=data.device)
     return out.index_add_(0, _ids(segment_ids, n), data)[:n]
 
@@ -64,6 +106,11 @@ def segment_count(segment_ids: torch.Tensor, num_segments: int,
     ``bincount``'s length, so they are counted by an int64 ``index_add_``
     into the same n + 1 slots."""
     n = int(num_segments)
+    mesh = mesh_of(segment_ids)
+    if mesh is not None:
+        _, ids_in, out = scatter_plan(segment_ids, segment_ids)
+        return _summed(lambda i: segment_count(i, n, dtype), (segment_ids,), (ids_in,), (None,),
+                       out, (n,), mesh)
     ids = _ids(segment_ids, n)
     if holds_data(ids):
         counts = torch.bincount(ids, minlength=n + 1)
@@ -180,8 +227,34 @@ def spmm_di(
     ``impl`` is kept, and checked, for parity with the reference's config."""
     if impl not in ("segment", "kernel"):
         raise ValueError(f"impl must be 'segment' or 'kernel', got {impl!r}")
+    mesh = mesh_of(x, src_idx, dst_idx, edge_weight)
+    if mesh is not None:
+        return _sharded_spmm(x, src_idx, dst_idx, int(num_nodes), edge_weight, impl, mesh)
     if impl == "kernel" or x.device.type == "cuda" or _cost.counter is not None:
         from repro_torch.kernels.seg_mm import ops as _ops
 
         return _ops.seg_mm(x, src_idx, dst_idx, num_nodes, edge_weight=edge_weight)
     return gather_scatter(x, src_idx, dst_idx, num_nodes, edge_weight=edge_weight, agg="sum")
+
+
+def _sharded_spmm(x, src_idx, dst_idx, n: int, edge_weight, impl: str, mesh) -> DTensor:
+    """``spmm_di`` over DTensors (module docstring): the table whole along
+    its rows where the edges are split, B5 (or its plain version) on this
+    rank's edges into a ``Partial`` (n, D) table, reduced as a segment sum's."""
+    x, src, dst = (as_dtensor(t, mesh) for t in (x, src_idx, dst_idx))
+    if src.placements != dst.placements:
+        raise ValueError(f"spmm_di: src placed {src.placements}, dst {dst.placements}: the "
+                         "edges are split alike")
+    x_in, grad, rows = gather_plan(x, src)
+    # a Partial sum where the edges are split, else the gathered rows' feature split
+    out = tuple(Partial() if isinstance(e, Shard) else r for r, e in zip(rows, src.placements))
+    x_local = x.redistribute(mesh, x_in).to_local(grad_placements=grad)
+    w_local = None
+    if edge_weight is not None:
+        w_local = as_dtensor(edge_weight, mesh).redistribute(mesh, src.placements).to_local()
+    local = spmm_di(x_local, src._local_tensor, dst._local_tensor, n, edge_weight=w_local,
+                    impl=impl)
+    shape = (n,) + tuple(x.shape[1:])
+    table = DTensor.from_local(local, mesh, out, run_check=False, shape=torch.Size(shape),
+                               stride=contiguous_stride(shape))
+    return table.redistribute(mesh, node_placements(mesh, n, out))

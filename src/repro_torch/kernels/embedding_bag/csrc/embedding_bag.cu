@@ -13,6 +13,12 @@
 //     its bag (the reference's jnp.take fills NaN there); MH = 0 gives
 //     0/0 = NaN.  The Pallas kernel would read out of bounds on such an
 //     index: here it is never used as an address.
+//     Row window: the tables may hold rows [row_lo, row_lo + rows) of
+//     each V-row global table (one device's slice when the rows are split
+//     over a mesh).  A valid index whose (wrapped) row lies outside the
+//     window adds nothing; V, the NaN rule and the divisor MH stay the
+//     global ones, so the windows' results sum to the whole lookup.  The
+//     full window (row_lo = 0, rows = V) computes exactly what it did.
 //
 // What bounds it on an H100: memory.  Each bag reads MH rows of D values
 // at random and does one add per value: far under one operation per byte.
@@ -75,12 +81,12 @@ template <typename T, int VEC, int G>
 __global__ void __launch_bounds__(kThreads)
 embedding_bag_kernel(const T* __restrict__ tables, const int32_t* __restrict__ idx,
                      T* __restrict__ out, int64_t n_pairs, int64_t n_fields, int64_t vocab,
-                     int64_t d, int mh) {
+                     int64_t row_lo, int64_t rows, int64_t d, int mh) {
   constexpr int kPairsPerBlock = kThreads / G;
   const int gl = threadIdx.x % G;  // lane within the group
   const int64_t pair = (int64_t)blockIdx.x * kPairsPerBlock + threadIdx.x / G;
   if (pair >= n_pairs) return;  // whole groups leave together
-  const T* table = tables + (pair % n_fields) * vocab * d;
+  const T* table = tables + (pair % n_fields) * rows * d;
   const int32_t* bag = idx + pair * mh;
   T* orow = out + pair * d;
   const float nan = __int_as_float(0x7fc00000);
@@ -95,9 +101,12 @@ embedding_bag_kernel(const T* __restrict__ tables, const int32_t* __restrict__ i
       int64_t i = __ldg(bag + h);
       if (i >= -vocab && i < vocab) {
         if (i < 0) i += vocab;
-        const Vec<T, VEC> r = *reinterpret_cast<const Vec<T, VEC>*>(table + i * d + c);
+        i -= row_lo;
+        if (i >= 0 && i < rows) {  // a row outside the window adds nothing
+          const Vec<T, VEC> r = *reinterpret_cast<const Vec<T, VEC>*>(table + i * d + c);
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) acc[k] = __fadd_rn(acc[k], to_f32<T>(r.v[k]));
+          for (int k = 0; k < VEC; ++k) acc[k] = __fadd_rn(acc[k], to_f32<T>(r.v[k]));
+        }
       } else {
 #pragma unroll
         for (int k = 0; k < VEC; ++k) acc[k] = __fadd_rn(acc[k], nan);
@@ -112,36 +121,45 @@ embedding_bag_kernel(const T* __restrict__ tables, const int32_t* __restrict__ i
 
 template <typename T, int VEC, int G>
 void launch_g(const T* tables, const int32_t* idx, T* out, int64_t n_pairs, int64_t n_fields,
-              int64_t vocab, int64_t d, int mh, cudaStream_t stream) {
+              int64_t vocab, int64_t row_lo, int64_t rows, int64_t d, int mh,
+              cudaStream_t stream) {
   constexpr int64_t kPairsPerBlock = kThreads / G;
   const int64_t blocks = (n_pairs + kPairsPerBlock - 1) / kPairsPerBlock;
   embedding_bag_kernel<T, VEC, G><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      tables, idx, out, n_pairs, n_fields, vocab, d, mh);
+      tables, idx, out, n_pairs, n_fields, vocab, row_lo, rows, d, mh);
 }
 
 // G = the smallest power of two >= the lanes a row needs, at most 32
 template <typename T, int VEC>
 void launch_vec(const T* tables, const int32_t* idx, T* out, int64_t n_pairs,
-                int64_t n_fields, int64_t vocab, int64_t d, int mh, cudaStream_t stream) {
+                int64_t n_fields, int64_t vocab, int64_t row_lo, int64_t rows, int64_t d, int mh,
+                cudaStream_t stream) {
   const int64_t lanes = (d + VEC - 1) / VEC;
   if (lanes <= 1) {
-    launch_g<T, VEC, 1>(tables, idx, out, n_pairs, n_fields, vocab, d, mh, stream);
+    launch_g<T, VEC, 1>(tables, idx, out, n_pairs, n_fields, vocab, row_lo, rows, d, mh,
+                        stream);
   } else if (lanes <= 2) {
-    launch_g<T, VEC, 2>(tables, idx, out, n_pairs, n_fields, vocab, d, mh, stream);
+    launch_g<T, VEC, 2>(tables, idx, out, n_pairs, n_fields, vocab, row_lo, rows, d, mh,
+                        stream);
   } else if (lanes <= 4) {
-    launch_g<T, VEC, 4>(tables, idx, out, n_pairs, n_fields, vocab, d, mh, stream);
+    launch_g<T, VEC, 4>(tables, idx, out, n_pairs, n_fields, vocab, row_lo, rows, d, mh,
+                        stream);
   } else if (lanes <= 8) {
-    launch_g<T, VEC, 8>(tables, idx, out, n_pairs, n_fields, vocab, d, mh, stream);
+    launch_g<T, VEC, 8>(tables, idx, out, n_pairs, n_fields, vocab, row_lo, rows, d, mh,
+                        stream);
   } else if (lanes <= 16) {
-    launch_g<T, VEC, 16>(tables, idx, out, n_pairs, n_fields, vocab, d, mh, stream);
+    launch_g<T, VEC, 16>(tables, idx, out, n_pairs, n_fields, vocab, row_lo, rows, d, mh,
+                        stream);
   } else {
-    launch_g<T, VEC, 32>(tables, idx, out, n_pairs, n_fields, vocab, d, mh, stream);
+    launch_g<T, VEC, 32>(tables, idx, out, n_pairs, n_fields, vocab, row_lo, rows, d, mh,
+                        stream);
   }
 }
 
 template <typename T>
 void launch(const void* tables, const void* idx, void* out, int64_t n_pairs, int64_t n_fields,
-            int64_t vocab, int64_t d, int mh, cudaStream_t stream) {
+            int64_t vocab, int64_t row_lo, int64_t rows, int64_t d, int mh,
+            cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const T* tp = static_cast<const T*>(tables);
   const int32_t* ip = static_cast<const int32_t*>(idx);
@@ -149,24 +167,27 @@ void launch(const void* tables, const void* idx, void* out, int64_t n_pairs, int
   const bool aligned = d % kVec == 0 && reinterpret_cast<uintptr_t>(tables) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(out) % 16 == 0;
   if (aligned) {
-    launch_vec<T, kVec>(tp, ip, op, n_pairs, n_fields, vocab, d, mh, stream);
+    launch_vec<T, kVec>(tp, ip, op, n_pairs, n_fields, vocab, row_lo, rows, d, mh, stream);
   } else {
-    launch_vec<T, 1>(tp, ip, op, n_pairs, n_fields, vocab, d, mh, stream);
+    launch_vec<T, 1>(tp, ip, op, n_pairs, n_fields, vocab, row_lo, rows, d, mh, stream);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  n_pairs = B * F.
+// dtype: 0 = float32, 1 = bfloat16.  n_pairs = B * F.  The tables hold rows
+// [row_lo, row_lo + rows) of each vocab-row table.
 extern "C" int embedding_bag_launch(const void* tables, const void* idx, void* out,
                                     long long n_pairs, long long n_fields, long long vocab,
-                                    long long d, int mh, int dtype, void* stream) {
+                                    long long row_lo, long long rows, long long d, int mh,
+                                    int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_pairs > 0 && d > 0) {
     if (dtype == 0) {
-      launch<float>(tables, idx, out, n_pairs, n_fields, vocab, d, mh, st);
+      launch<float>(tables, idx, out, n_pairs, n_fields, vocab, row_lo, rows, d, mh, st);
     } else if (dtype == 1) {
-      launch<__nv_bfloat16>(tables, idx, out, n_pairs, n_fields, vocab, d, mh, st);
+      launch<__nv_bfloat16>(tables, idx, out, n_pairs, n_fields, vocab, row_lo, rows, d, mh,
+                            st);
     } else {
       return static_cast<int>(cudaErrorInvalidValue);
     }

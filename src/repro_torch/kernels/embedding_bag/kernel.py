@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,7 +24,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the source's dtype codes
 
 def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.embedding_bag_launch
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 6
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
@@ -36,15 +37,18 @@ def build() -> Path:
     return LIBRARY.build()
 
 
-def launch_embedding_bag(tables: torch.Tensor, idx: torch.Tensor, out: torch.Tensor) -> None:
+def launch_embedding_bag(tables: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
+                         window: Optional[Tuple[int, int]] = None) -> None:
     """B4: ``out`` (B, F, D) ← the mean over h of ``tables[f, idx[b, f, h]]``.
-    ``tables`` (F, V, D) f32 or bf16, ``idx`` (B, F, MH) int32, ``out`` in
-    the tables' type."""
+    ``tables`` (F, R, D) f32 or bf16, ``idx`` (B, F, MH) int32, ``out`` in
+    the tables' type; ``window`` = (V, row_lo): the tables are rows
+    [row_lo, row_lo + R) of V-row tables (None: the whole tables)."""
     fn = LIBRARY.load().embedding_bag_launch
-    f, v, d = tables.shape
+    f, r, d = tables.shape
+    v, lo = (r, 0) if window is None else window
     b, _, mh = idx.shape
     with torch.cuda.device(tables.device):
         stream = torch.cuda.current_stream(tables.device).cuda_stream
-        err = fn(tables.data_ptr(), idx.data_ptr(), out.data_ptr(), b * f, f, v, d, mh,
+        err = fn(tables.data_ptr(), idx.data_ptr(), out.data_ptr(), b * f, f, v, lo, r, d, mh,
                  DTYPES[tables.dtype], stream)
     _build.check_launch(fn, err)

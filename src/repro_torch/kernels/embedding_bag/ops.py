@@ -1,7 +1,13 @@
 """Public wrapper for the embedding_bag kernel (B4): DLRM's pooled lookup.
 
 ``embedding_bag_fields(tables, idx)`` computes the (B, F, D) mean bags of
-(B, F, MH) indices into (F, V, D) tables.  It checks its inputs, sends CPU
+(B, F, MH) indices into (F, V, D) tables.  With ``window=(V, row_lo)`` the
+tables are rows [row_lo, row_lo + R) of V-row tables (one device's slice
+of row-split tables, ``models/dlrm.py``'s partitioned lookup): a row
+outside the window adds nothing, while V's NaN rule and the divisor MH stay
+global, so the bags of the windows of a split of [0, V) sum to the whole
+lookup's; the backward writes the window's R rows.  No window is the whole
+table, as before windows existed.  It checks its inputs, sends CPU
 tensors to the plain version (``ref.embedding_bag_ref``) and launches the
 CUDA kernel (``kernel.py``) on CUDA tensors — there is no fallback from the
 card to the plain version.  ``launches`` counts kernel launches (never
@@ -30,7 +36,7 @@ is exact.  Fake and meta inputs, and CPU inputs under a counter, take
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -73,7 +79,7 @@ def embedding_bag_bwd_cost(table_shape, idx_shape, esize: int) -> _cost.Charge:
                         b * f * d * 4 + b * f * mh * 4 + f * v * d * esize)
 
 
-def _charged(tables: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def _charged(tables: torch.Tensor, idx: torch.Tensor, window) -> torch.Tensor:
     """B4 under a cost counter on inputs that launch no kernel (module
     docstring): what the card's call returns, its backward charged."""
     b, f, mh = idx.shape
@@ -83,13 +89,13 @@ def _charged(tables: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     es = tables.element_size()
     backward = (embedding_bag_bwd_cost(tables.shape, idx.shape, es)
                 if mh and tables.numel() else None)
-    return _cost.charged(ref.embedding_bag_ref, (tables, idx),
+    return _cost.charged(lambda t, i: ref.embedding_bag_ref(t, i, window), (tables, idx),
                          empty=lambda t, i: t.new_empty((b, f, d)),
                          forward=embedding_bag_cost(tables.shape, idx.shape, es),
                          backward=backward, keep=lambda inputs, out: (inputs[1],))
 
 
-def _check(tables: torch.Tensor, idx: torch.Tensor) -> None:
+def _check(tables: torch.Tensor, idx: torch.Tensor, window) -> None:
     name = EMBEDDING_BAG
     if tables.dtype not in kernel.DTYPES:
         raise TypeError(f"{name}: tables must be float32 or bfloat16, got {tables.dtype}")
@@ -106,17 +112,26 @@ def _check(tables: torch.Tensor, idx: torch.Tensor) -> None:
         raise ValueError(f"{name}: inputs must be contiguous")
     if tables.shape[1] >= 2**31 or idx.shape[0] * idx.shape[1] >= 2**31:
         raise ValueError(f"{name}: V and B * F must lie below 2**31")
+    if window is not None:
+        v, lo = window
+        if not (0 <= lo and lo + tables.shape[1] <= v < 2**31):
+            raise ValueError(f"{name}: rows [{lo}, {lo + tables.shape[1]}) are no window of "
+                             f"{v}-row tables below 2**31")
 
 
-def backward_layout(idx: torch.Tensor, v: int) -> seg_mm_ops.SegMMLayout:
-    """B5's layout for the gradient of (F, V, D) tables read by ``idx``
-    (B, F, MH): rows are the F·V (field, row) pairs, edge (b, f, h) in
+def backward_layout(idx: torch.Tensor, v: int, window=None) -> seg_mm_ops.SegMMLayout:
+    """B5's layout for the gradient of (F, v, D) tables read by ``idx``
+    (B, F, MH): rows are the F·v (field, row) pairs, edge (b, f, h) in
     ascending order reads bag b·F + f, and ids outside [-V, V) fall outside
-    every row."""
+    every row, as do rows outside the ``window`` (V, row_lo) (None: V = v,
+    row_lo = 0)."""
     b, f, mh = idx.shape
+    big_v, lo = (v, 0) if window is None else window
     i64 = idx.to(torch.int64)
     field = torch.arange(f, dtype=torch.int64, device=idx.device).view(1, f, 1) * v
-    rows = torch.where((i64 >= -v) & (i64 < v), torch.where(i64 < 0, i64 + v, i64) + field, -1)
+    r = torch.where((i64 >= -big_v) & (i64 < big_v), torch.where(i64 < 0, i64 + big_v, i64) - lo,
+                    -1)
+    rows = torch.where((r >= 0) & (r < v), r + field, -1)
     bags = torch.arange(b * f, dtype=torch.int32, device=idx.device).view(b, f, 1)
     return seg_mm_ops.build_layout(rows.reshape(-1).to(torch.int32), f * v,
                                    bags.expand(b, f, mh).reshape(-1))
@@ -127,22 +142,27 @@ class _EmbeddingBag(torch.autograd.Function):
     tensors only."""
 
     @staticmethod
-    def forward(ctx, tables, idx):
+    def forward(ctx, tables, idx, *window):
+        """``window``: nothing (the whole tables) or the one (V, row_lo)."""
         ctx.table_shape, ctx.table_dtype = tables.shape, tables.dtype
+        ctx.window, ctx.n_window = (window[0] if window else None), len(window)
         ctx.save_for_backward(idx)
-        return _launch(tables, idx)
+        return _launch(tables, idx, ctx.window)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
         (idx,) = ctx.saved_tensors
-        return bag_gradient(grad_out, idx, ctx.table_shape, ctx.table_dtype), None
+        return (bag_gradient(grad_out, idx, ctx.table_shape, ctx.table_dtype, ctx.window),
+                None, *(None,) * ctx.n_window)
 
 
-def bag_gradient(grad_out: torch.Tensor, idx: torch.Tensor, table_shape, dtype) -> torch.Tensor:
+def bag_gradient(grad_out: torch.Tensor, idx: torch.Tensor, table_shape, dtype,
+                 window=None) -> torch.Tensor:
     """The gradient of (F, V, D) tables of ``dtype`` read by ``idx`` (B, F,
     MH) under the bags' gradient ``grad_out`` (B, F, D), on B5 (module
-    docstring); CUDA tensors."""
+    docstring); CUDA tensors.  With ``window`` the tables are its rows
+    (``table_shape``'s V of them)."""
     f, v, d = table_shape
     b, _, mh = idx.shape
     if f * v >= 2**31 or b * f * mh >= 2**31:
@@ -153,37 +173,46 @@ def bag_gradient(grad_out: torch.Tensor, idx: torch.Tensor, table_shape, dtype) 
     bags = grad_out.to(torch.float32) / torch.full((), float(mh), device=idx.device)
     charge_as = (embedding_bag_bwd_cost(table_shape, idx.shape, dtype.itemsize)
                  if _cost.counter is not None else None)
-    grad = seg_mm_ops._launch(bags.reshape(b * f, d).contiguous(), backward_layout(idx, v), None,
-                              f * v, charge_as=charge_as)  # every row written: empty rows as zeros
+    # every row written: empty rows as zeros
+    grad = seg_mm_ops._launch(bags.reshape(b * f, d).contiguous(),
+                              backward_layout(idx, v, window), None, f * v, charge_as=charge_as)
     launches[EMBEDDING_BAG_BACKWARD] += 1
     return grad.view(f, v, d).to(dtype)
 
 
-def _launch(tables: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def _launch(tables: torch.Tensor, idx: torch.Tensor, window) -> torch.Tensor:
     out = torch.empty((idx.shape[0], idx.shape[1], tables.shape[2]), dtype=tables.dtype,
                       device=tables.device)
     if out.numel():
-        kernel.launch_embedding_bag(tables, idx, out)
+        if window is None:
+            kernel.launch_embedding_bag(tables, idx, out)
+        else:
+            kernel.launch_embedding_bag(tables, idx, out, window)
         launches[EMBEDDING_BAG] += 1
         if _cost.counter is not None:
             _cost.charge(embedding_bag_cost(tables.shape, idx.shape, tables.element_size()))
     return out
 
 
-def embedding_bag_fields(tables: torch.Tensor, idx: torch.Tensor, *, bt: int = 256) -> torch.Tensor:
+def embedding_bag_fields(tables: torch.Tensor, idx: torch.Tensor, *, bt: int = 256,
+                         window: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """(F, V, D) tables × (B, F, MH) int32 multi-hot indices → (B, F, D)
     mean bags in ``tables.dtype`` (f32 sums).  Indices in [-V, -1] wrap;
-    others outside [0, V) give NaN bags, as the reference does.  ``bt`` (the
-    reference's batch tile) is accepted and ignored: the card has no tile
-    rule.  Differentiable in ``tables`` (on the card through B5)."""
+    others outside [0, V) give NaN bags, as the reference does.  ``window``
+    = (V, row_lo): the tables are rows [row_lo, row_lo + R) of V-row tables
+    (module docstring).  ``bt`` (the reference's batch tile) is accepted
+    and ignored: the card has no tile rule.  Differentiable in ``tables``
+    (on the card through B5)."""
     del bt
-    _check(tables, idx)
+    if window is not None:
+        window = (int(window[0]), int(window[1]))
+    _check(tables, idx, window)
     if _cost.counter is not None and not _cost.launches_kernel(tables):
-        return _charged(tables, idx)
+        return _charged(tables, idx, window)
     if tables.device.type != "cuda":
         if tables.device.type == "meta":
-            return _charged(tables, idx)
-        return ref.embedding_bag_ref(tables, idx)
+            return _charged(tables, idx, window)
+        return ref.embedding_bag_ref(tables, idx, window)
     if torch.is_grad_enabled() and tables.requires_grad:
-        return _EmbeddingBag.apply(tables, idx)
-    return _launch(tables, idx)
+        return _EmbeddingBag.apply(tables, idx, *(() if window is None else (window,)))
+    return _launch(tables, idx, window)

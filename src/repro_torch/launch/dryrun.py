@@ -23,9 +23,10 @@ operations, not comparable with XLA's fused figure), ``kernel_flops``,
 whether its rows were charged from shapes), ``peak_bytes`` (live bytes on
 the one device), ``argument_bytes`` and ``argument_bytes_per_dev`` (under
 the spec rules on the production mesh), ``coll_bytes`` (None: the whole
-step runs on one device, ``coll_bytes_reason``) and ``trace_s``.
+step runs on one device; ``coll_bytes_reason`` says where the traffic is)
+and ``trace_s``.
 
-Each LM cell is traced a second time as the reference compiles it: as one
+Each cell is traced a second time as the reference compiles it: as one
 device's program on the production mesh.  ``launch/mesh.fake_device_mesh``
 makes the mesh a ``DeviceMesh`` over a fake process group (256 ranks, 512
 with ``--multi-pod``), the arguments become this rank's fake shards
@@ -35,15 +36,19 @@ collectives DTensor issues.  The record gains rank 0's ``flops_per_dev``,
 ``flops_bf16_per_dev``, ``kernel_flops_per_dev``, ``kernels_per_dev``,
 ``peak_bytes_per_dev``, ``coll_bytes_per_dev``,
 ``coll_by_kind`` and ``coll_count`` (the reference's keys and ring model)
-and ``partition_trace_s``.  The GNN and DLRM cells have no partitioned
-program yet (ROADMAP A16c).  A skipped cell's record says so.  It prints
+and ``partition_trace_s``: the LMs through their sharding hints
+(``models/transformer.py``, ``nn/moe.py``), the GNNs through the sharded
+gather and scatter (``graph/segment_ops.py``; GCN's B5 on the rank's own
+edges, GraphCast's ``_constrain``), DLRM through B4 on the rank's row
+window of the tables and a per-rank top-k (``models/dlrm.py``).  A
+skipped cell's record says so.  It prints
 the reference's ``[ok]``, ``[skip]`` and ``[cached]`` lines and exits 1
 if any cell failed.
 
 Fake tensors cost the host ~0.1–0.5 ms an operation, and DTensor adds its
 sharding propagation to each, so ``--all`` takes minutes on one core;
 ``--jobs N`` traces the cells in N worker processes (the LM training cells
-first; an LM cell's whole step and its per-device program in two), each
+first; a cell's whole step and its per-device program in two), each
 with its own process group.
 """
 from __future__ import annotations
@@ -60,7 +65,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core.device import resolve_device
-from repro_torch.launch.hlo_analysis import COLL_BYTES_REASON, CostCounter
+from repro_torch.launch.hlo_analysis import CostCounter
 from repro_torch.launch.mesh import fake_device_mesh, make_production_mesh
 from repro_torch.launch.sharding import tree_named
 from repro_torch.launch.steps import (argument_bytes_per_dev, build_cell, map_tensors,
@@ -69,8 +74,8 @@ from repro_torch.launch.steps import (argument_bytes_per_dev, build_cell, map_te
 __all__ = ["run_cell", "partitioned_record", "trace_step", "trace_partitioned", "fake_args",
            "main"]
 
-LM_COLL_BYTES_REASON = ("the whole step runs on one device; one device's collectives on the "
-                        "production mesh are coll_bytes_per_dev")
+COLL_BYTES_REASON = ("the whole step runs on one device; one device's collectives on the "
+                     "production mesh are coll_bytes_per_dev")
 
 _MOE_FIELDS = ("moe_groups", "moe_virtual_split", "moe_expert_axis", "moe_tp_axis")
 
@@ -122,15 +127,15 @@ def partitioned_fields(tot, trace_s: float) -> Dict:
 
 def partitioned_record(arch: str, shape: str, *, multi_pod: bool = False, device=None,
                        verbose: bool = True) -> Dict:
-    """An LM cell's per-device fields: its step traced as rank 0's program
-    on the production mesh (``trace_partitioned``)."""
+    """A cell's per-device fields: its step traced as rank 0's program on
+    the production mesh (``trace_partitioned``)."""
     device = resolve_device(device)
     mesh = make_production_mesh(multi_pod=multi_pod)
     _, step_fn, args, in_specs, _, _ = build_cell(arch, shape, mesh)
     t0 = time.perf_counter()
     tot = trace_partitioned(step_fn, args, in_specs, mesh, device)
     rec = {**partitioned_fields(tot, time.perf_counter() - t0),
-           "coll_bytes_reason": LM_COLL_BYTES_REASON}
+           "coll_bytes_reason": COLL_BYTES_REASON}
     if verbose:
         print(f"[ok] {arch} × {shape} per device ({'2-pod' if multi_pod else '1-pod'}, "
               f"{device.type}): trace {rec['partition_trace_s']:.1f}s "
@@ -141,9 +146,8 @@ def partitioned_record(arch: str, shape: str, *, multi_pod: bool = False, device
 
 def run_cell(arch: str, shape: str, *, multi_pod: bool = False, device=None,
              verbose: bool = True, partitioned: bool = True) -> Optional[Dict]:
-    """One cell's record; an LM cell's per-device fields too unless
-    ``partitioned`` is False (``main --jobs`` traces them in another
-    worker)."""
+    """One cell's record; its per-device fields too unless ``partitioned``
+    is False (``main --jobs`` traces them in another worker)."""
     device = resolve_device(device)
     mesh = make_production_mesh(multi_pod=multi_pod)
     built = build_cell(arch, shape, mesh)
@@ -180,7 +184,7 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False, device=None,
               f"kernel_flops={rec['kernel_flops']:.3e} kernel_bytes={rec['kernel_bytes']:.3e} "
               f"charges={charges} | peak={rec['peak_bytes'] / 2**30:.2f}GiB "
               f"args/dev={rec['argument_bytes_per_dev'] / 2**30:.3f}GiB", flush=True)
-    if partitioned and _family(arch) == "lm":
+    if partitioned:
         rec.update(partitioned_record(arch, shape, multi_pod=multi_pod, device=device,
                                       verbose=verbose))
     return rec
@@ -261,7 +265,7 @@ def main(argv=None) -> None:
                 kw = dict(multi_pod=mp, device=device.type)
                 whole = pool.submit(run_cell, a, s, partitioned=False, **kw)
                 part = (pool.submit(partitioned_record, a, s, **kw)
-                        if _family(a) == "lm" and (a, s) not in SKIPPED_CELLS else None)
+                        if (a, s) not in SKIPPED_CELLS else None)
                 futures.append(((a, s, mp), whole, part))
             for cell, whole, part in futures:
                 finish(cell, lambda: {**whole.result(), **(part.result() if part else {})})

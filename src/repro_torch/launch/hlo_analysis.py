@@ -47,8 +47,7 @@ outputs it saved are served from its cache and not dispatched again, so
 they count once.
 
 A step on plain tensors runs whole on one device and issues no
-collective: its ``coll_bytes`` is None (``COLL_BYTES_REASON``: the families
-whose partitioned program is still to come).
+collective: its ``coll_bytes`` is None.
 """
 from __future__ import annotations
 
@@ -64,11 +63,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.kernels import _cost
 
-__all__ = ["CostCounter", "Totals", "count_step", "tensors_of", "ring_bytes",
-           "COLL_BYTES_REASON"]
-
-COLL_BYTES_REASON = ("the GNN and DLRM cells have no partitioned program yet (ROADMAP A16c): "
-                     "their step runs whole on one device, so no collective moves bytes")
+__all__ = ["CostCounter", "Totals", "count_step", "tensors_of", "ring_bytes"]
 
 _aten = torch.ops.aten
 # matmul-class operations: (operand index of the first matrix, of the second)
@@ -158,8 +153,12 @@ def _patched(owner, name: str, make) -> contextlib.AbstractContextManager:
 def _unseen_sharding_propagation(counter) -> contextlib.AbstractContextManager:
     """DTensor works out an operation's output shape by running it on fake
     tensors of the global shapes (``_propagate_tensor_meta_non_cached``,
-    which its cached paths call too); the counter ignores those runs (they
-    are no rank's work)."""
+    which its cached paths call too), and, for an operation it has no rule
+    for, a strategy by running its decomposition on them
+    (``DecompShardingStrategy.propagate_strategy``, where this torch has
+    it: the first call of each operation and placement, a (1,000,448, 64)
+    f32 table's worth for retrieval's ``mv``); the counter ignores those
+    runs (they are no rank's work)."""
     from torch.distributed.tensor._sharding_prop import ShardingPropagator
 
     def ignoring(original):
@@ -171,7 +170,15 @@ def _unseen_sharding_propagation(counter) -> contextlib.AbstractContextManager:
                 counter._ignore -= 1
         return run
 
-    return _patched(ShardingPropagator, "_propagate_tensor_meta_non_cached", ignoring)
+    stack = contextlib.ExitStack()
+    stack.enter_context(_patched(ShardingPropagator, "_propagate_tensor_meta_non_cached",
+                                 ignoring))
+    try:
+        from torch.distributed.tensor._decompositions import DecompShardingStrategy
+    except ImportError:  # a torch that propagates no strategy through decompositions
+        return stack
+    stack.enter_context(_patched(DecompShardingStrategy, "propagate_strategy", ignoring))
+    return stack
 
 
 def _alltoall_as_on_the_card() -> contextlib.AbstractContextManager:

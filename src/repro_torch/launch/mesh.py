@@ -19,7 +19,7 @@ has them (``make_entity_mesh()``: every card).
 ``"data"``, ``"model"``), as an ``AbstractMesh``: axis names and sizes,
 no devices.  The dry run's spec rules (``launch/sharding.py``) read them,
 and ``fake_device_mesh`` makes one a ``torch.distributed`` ``DeviceMesh``
-over a fake process group, on which the dry run traces an LM cell as one
+over a fake process group, on which the dry run traces a cell as one
 rank's program (``launch/dryrun.py``; the counterpart of the reference's
 512 placeholder devices).
 """

@@ -848,13 +848,16 @@ def smoke(m: int = 600, requests: int = 24, concurrency: int = 4,
         if on_card:  # the first report is cold by construction: new allocator blocks
             torch.cuda.empty_cache()
         rep = pg.explain_analyze(pool[0])
-        rep2 = pg.explain_analyze(pool[0])  # warm: the first call's costs paid
-        for r in (rep, rep2):
+        warm = [pg.explain_analyze(pool[0]) for _ in range(3)]  # the first call's costs paid
+        for r in (rep, *warm):
             assert r.total_first_ms >= r.steady_ms >= 0
         if on_card:
             # only a cold first report has a one-off share to compare; on
-            # the CPU nothing is paid once and both readings are jitter
-            assert rep2.compile_ms <= rep.compile_ms
+            # the CPU nothing is paid once and every reading is jitter.  A
+            # warm report pays no more one-off cost than the cold one: one
+            # warm host reading can be jitter above the noise floor, so the
+            # least of three stands for the warm report
+            assert min(r.compile_ms for r in warm) <= rep.compile_ms
         wl = synthetic_workload(["g"], pool, requests, seed=seed + 1)
         run_workload(svc, wl, concurrency)
         m1 = parse_prometheus(svc.metrics_text())

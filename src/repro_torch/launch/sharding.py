@@ -171,7 +171,7 @@ def pg_specs(mesh) -> Dict[str, Any]:
 
 # ------------------------------------------------------------ model families
 def tree_named(dmesh, spec_tree, args):
-    """``args`` (dicts, lists and tuples of tensors) as DTensors on
+    """``args`` (dicts, lists, tuples and dataclasses of tensors) as DTensors on
     ``dmesh`` placed by the aligned ``spec_tree``; other leaves kept.  A
     tensor that holds data gives this rank its slice; an abstract one
     (meta, fake) an empty shard of the local shape on ``dmesh``'s device
@@ -189,6 +189,10 @@ def tree_named(dmesh, spec_tree, args):
         return {k: tree_named(dmesh, spec_tree[k], v) for k, v in args.items()}
     if isinstance(args, (list, tuple)):
         return type(args)(tree_named(dmesh, s, a) for a, s in zip(args, spec_tree))
+    if dataclasses.is_dataclass(args) and not isinstance(args, type):
+        return dataclasses.replace(args, **{
+            f.name: tree_named(dmesh, getattr(spec_tree, f.name), getattr(args, f.name))
+            for f in dataclasses.fields(args) if torch.is_tensor(getattr(args, f.name))})
     return args
 
 

@@ -16,8 +16,11 @@ the model axis but divide into it, as Mixtral's 8 into 16: each expert
 becomes F-slices, which changes the parameter shapes, the capacity and the
 expert FLOPs) and the expert or TP axis.  A step runs whole on one device
 on plain tensors; on DTensors placed by the specs (``sharding.tree_named``)
-the LM steps run as one rank's program (``run_partitioned``), the configs'
-sharding fields their hints (``models/transformer.py``, ``nn/moe.py``).
+every step runs as one rank's program (``run_partitioned``): the LM
+configs' sharding fields their hints (``models/transformer.py``,
+``nn/moe.py``), GraphCast's ``dp_axes``/``tp_axis`` its ``_constrain``
+hints, the GNNs' gathers and scatters through ``graph/segment_ops.py``'s
+sharded forms, DLRM's lookup on each rank's row window (``models/dlrm.py``).
 
 Training steps take the gradient by autograd and run the full AdamW update
 (``optim/adamw.apply_updates``, donated as the port's trainer donates it),

@@ -13,11 +13,11 @@ The reference's basis simplification is kept: spherical Bessel j_l is
 replaced by its sin(nπd/c)/d radial family and Y_l0 by Legendre P_l(cos α);
 the bilinear interaction uses the DimeNet++ down-projected form.
 
-Gathers go through ``kernels/seg_mm/ref.gather_rows`` and aggregation
-through ``graph/segment_ops.segment_sum``: ids outside [0, n) are dropped
-from a sum, as the reference's ``segment_sum`` drops them, and gradients
-follow the reference's transpose.  The reference runs this model through
-XLA (no Pallas kernel), so the port runs torch ops.  Each block runs under
+Gathers go through ``graph/segment_ops.gather_rows`` and aggregation
+through ``segment_sum`` (over DTensors their sharded forms): ids outside
+[0, n) are dropped from a sum, as the reference's ``segment_sum`` drops
+them, and gradients follow the reference's transpose.  The reference runs
+this model through XLA (no Pallas kernel), so the port runs torch ops.  Each block runs under
 ``torch.utils.checkpoint`` when a gradient is taken, as the reference
 checkpoints each block.
 """
@@ -30,8 +30,7 @@ from typing import Dict
 import torch
 
 from repro_torch.core.device import resolve_device
-from repro_torch.graph.segment_ops import segment_sum
-from repro_torch.kernels.seg_mm.ref import gather_rows
+from repro_torch.graph.segment_ops import gather_rows, segment_sum
 from repro_torch.models.gnn_common import (GraphBatch, init_shaped, load_shaped, mlp_shapes,
                                            mlp_stack, remat_call)
 from repro_torch.nn.layers import linear
@@ -65,7 +64,8 @@ def _legendre(cos_a: torch.Tensor, l_max: int) -> torch.Tensor:
         ps.append(cos_a)
     for l in range(2, l_max):  # noqa: E741
         ps.append(((2 * l - 1) * cos_a * ps[-1] - (l - 1) * ps[-2]) / l)
-    return torch.stack(ps, dim=-1)
+    # dim 1, the last: torch 2.11's DTensor places a stack on -1 of row-split rows as Shard(1)
+    return torch.stack(ps, dim=1)
 
 
 def _sbf(d_kj: torch.Tensor, cos_a: torch.Tensor, cfg: DimeNetConfig) -> torch.Tensor:

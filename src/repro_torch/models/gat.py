@@ -15,8 +15,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.device import resolve_device
-from repro_torch.graph.segment_ops import gather_scatter, segment_softmax, segment_sum
-from repro_torch.kernels.seg_mm.ref import gather_rows
+from repro_torch.graph.segment_ops import (gather_rows, gather_scatter, segment_softmax,
+                                          segment_sum)
 from repro_torch.models.gcn import node_nll
 from repro_torch.models.gnn_common import GraphBatch, params_from_numpy
 from repro_torch.nn.layers import init_linear, linear

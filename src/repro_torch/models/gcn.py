@@ -81,7 +81,9 @@ def forward(params: Dict, batch: GraphBatch, cfg: GCNConfig) -> torch.Tensor:
     ``edge_dst`` tensors to ``spmm_di``, so on the card B5's layout (the
     dst sort, ``edge_src`` in dst order) is built once per batch and found
     in its cache by the second layer; each layer permutes ``w`` into dst
-    order again (one gather of E floats)."""
+    order again (one gather of E floats).  Over DTensors (one rank's
+    program on a mesh) ``spmm_di`` hands B5 the edges' local tensors
+    themselves, so the layout is built once a step there too."""
     x = batch.x.to(cfg.dtype)
     w = degree_norm(batch.edge_src, batch.edge_dst, batch.n_nodes, mode=cfg.norm)
     w = w * batch.edge_mask.to(w.dtype)

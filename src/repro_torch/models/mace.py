@@ -15,9 +15,10 @@ The ACE product basis (correlation order 3) is built from symmetric
 products of the per-atom A-features by that table, channel-mixed by
 learnable weights (the reference's simplification of full MACE).
 
-Gathers go through ``kernels/seg_mm/ref.gather_rows`` and aggregation
-through ``graph/segment_ops.segment_sum`` (ids outside [0, n) dropped, the
-reference's gradient rule); torch ops throughout, as the reference leaves
+Gathers go through ``graph/segment_ops.gather_rows`` and aggregation
+through ``segment_sum`` (ids outside [0, n) dropped, the reference's
+gradient rule; over DTensors their sharded forms, the radial weights made
+whole on their last dim before the per-l reshape); torch ops throughout, as the reference leaves
 the model to XLA.  Each layer runs under ``torch.utils.checkpoint`` when a
 gradient is taken, as the reference checkpoints each layer.
 """
@@ -28,13 +29,14 @@ import math
 from typing import Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.device import resolve_device
-from repro_torch.graph.segment_ops import segment_sum
-from repro_torch.kernels.seg_mm.ref import gather_rows
+from repro_torch.graph.segment_ops import gather_rows, segment_sum
 from repro_torch.models.gnn_common import (GraphBatch, init_shaped, load_shaped, mlp_shapes,
                                            mlp_stack, remat_call)
 from repro_torch.nn.layers import linear
+from repro_torch.nn.partition import unsplit
 
 __all__ = ["MACEConfig", "init_params", "params_from_reference", "forward", "loss_fn"]
 
@@ -65,8 +67,13 @@ def _bessel(d: torch.Tensor, n_rbf: int, r_cut: float) -> torch.Tensor:
 def _sym_traceless(t: torch.Tensor) -> torch.Tensor:
     """Project (…, 3, 3) onto the l=2 (traceless symmetric) component."""
     s = 0.5 * (t + t.transpose(-1, -2))
-    tr = torch.diagonal(s, dim1=-2, dim2=-1).sum(-1)[..., None, None]
-    return s - tr * torch.eye(3, dtype=t.dtype, device=t.device) / 3.0
+    eye = torch.eye(3, dtype=t.dtype, device=t.device)
+    # over DTensors a masked sum: torch 2.11's DTensor has no rule for diagonal's backward
+    if isinstance(s, DTensor):
+        tr = (s * eye).sum((-2, -1))[..., None, None]
+    else:
+        tr = torch.diagonal(s, dim1=-2, dim2=-1).sum(-1)[..., None, None]
+    return s - tr * eye / 3.0
 
 
 def _shapes(cfg: MACEConfig) -> Dict:
@@ -106,7 +113,7 @@ def _layer(lp: Dict, h0, h1, h2, batch: GraphBatch, cfg: MACEConfig):
     y2 = _sym_traceless(rhat[:, :, None] * rhat[:, None, :])        # (E, 3, 3) l=2
 
     rbf = _bessel(d, cfg.n_rbf, cfg.r_cut) * emask[:, None]
-    rw = mlp_stack(lp["radial"], rbf).reshape(-1, 3, c)  # (E, l, C)
+    rw = unsplit(mlp_stack(lp["radial"], rbf), -1).reshape(-1, 3, c)  # (E, l, C)
 
     hsrc = gather_rows(h0, src)  # (E, C) scalar neighbour features
     w0, w1, w2 = rw[:, 0] * hsrc, rw[:, 1] * hsrc, rw[:, 2] * hsrc

@@ -18,6 +18,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.core.device import holds_data, resolve_device
+from repro_torch.nn.partition import unsplit
 
 __all__ = [
     "init_linear",
@@ -118,7 +119,9 @@ def init_layernorm(d: int, dtype: torch.dtype = torch.float32,
 
 
 def layernorm(p: Dict[str, torch.Tensor], x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
-    xf = x.to(torch.float32)
+    """LayerNorm over the last dim; a DTensor is made whole along it first
+    (``nn/partition.unsplit``)."""
+    xf = unsplit(x, -1).to(torch.float32)
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
     y = (xf - mu) * torch.rsqrt(var + eps)

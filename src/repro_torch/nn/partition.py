@@ -15,18 +15,34 @@ data-parallel axes, one dim over ``model``), ``local_shard`` gives this
 rank's shard of a shape, and ``local_call`` runs a function on the local
 shards of an output whose split may be uneven.
 
+``gather_plan`` and ``scatter_plan`` place the two halves of message
+passing (``graph/segment_ops.py``'s DTensor forms).  A gather reads rows
+of a node table by global id: the ids keep their split (edges over the
+data-parallel axes; an index never crosses a collective, so a step on real
+tensors over a fake group reads its own ids), the table is whole along its
+rows on every mesh dim that splits the ids (an all-gather where it was
+split), and the rows come out split as the ids are, the table's feature
+split kept.  Each rank's gradient of the whole table is then one part of
+a sum (``Partial``).  A scatter sums each rank's edges into a whole
+(n, ...) table, a ``Partial`` one on every mesh dim that splits the edges,
+which ``node_placements`` then reduces to the node tables' rule: rows over
+those axes where they divide n (a reduce-scatter), else whole on every
+rank (an all-reduce).
+
 The spec rules of each family live in ``launch/sharding.py``, which
 re-exports these helpers for its callers.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Sequence, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 __all__ = ["P", "named", "constrain", "local_shard", "local_call", "mesh_placements",
-           "contiguous_stride"]
+           "contiguous_stride", "unsplit", "mesh_of", "as_dtensor", "gather_plan",
+           "scatter_plan", "node_placements"]
 
 
 def P(*dims) -> Tuple:
@@ -72,6 +88,20 @@ def constrain(x, spec):
         return x
     want = named(x.device_mesh, spec)
     return x if tuple(x.placements) == want else x.redistribute(x.device_mesh, want)
+
+
+def unsplit(x, dim: int):
+    """A DTensor made whole along ``dim`` (``Replicate()`` on each mesh dim
+    that splits it: an all-gather), its other placements kept; any other
+    value unchanged.  Before a reduction along ``dim`` whose gradient
+    DTensor cannot redistribute (a mean's ``Partial(avg)``) or a reshape
+    that splits ``dim`` unevenly over the mesh."""
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.ndim
+    want = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim else p
+                 for p in x.placements)
+    return x if want == tuple(x.placements) else x.redistribute(x.device_mesh, want)
 
 
 def local_shard(shape, placements, dmesh) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
@@ -127,3 +157,72 @@ def local_call(fn, args, in_placements, in_grad_placements, out_placements, out_
         local.append(a.to_local(grad_placements=grad))
     return DTensor.from_local(fn(*local), mesh, out_placements, run_check=False,
                               shape=torch.Size(out_shape), stride=contiguous_stride(out_shape))
+
+
+def mesh_of(*xs):
+    """The device mesh of the first DTensor among ``xs``; None if none is one."""
+    return next((x.device_mesh for x in xs if isinstance(x, DTensor)), None)
+
+
+def as_dtensor(x, mesh) -> DTensor:
+    """``x`` as a DTensor on ``mesh``: a DTensor as it is, a plain tensor
+    (one every rank made alike: a constant, a mask) replicated."""
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def gather_plan(table: DTensor, ids: DTensor) -> Tuple[Tuple, Tuple, Tuple]:
+    """(the table's placements for the gather, its local gradient's, the
+    rows') of ``table[ids]`` (module docstring), one per mesh dim: where
+    the ids are split the table is whole (its gradient a ``Partial`` sum)
+    and the rows split as the ids; elsewhere the table keeps a feature
+    split (the rows split on the same feature dim) and is whole along its
+    rows."""
+    table_in, grad, out = [], [], []
+    for ip, tp in zip(ids.placements, table.placements):
+        if isinstance(ip, Shard):
+            table_in.append(Replicate())
+            grad.append(Partial())
+            out.append(ip)
+        elif isinstance(tp, Shard) and tp.dim > 0:
+            table_in.append(tp)
+            grad.append(tp)
+            out.append(Shard(tp.dim - 1 + ids.ndim))
+        else:
+            table_in.append(Replicate())
+            grad.append(Replicate())
+            out.append(Replicate())
+    return tuple(table_in), tuple(grad), tuple(out)
+
+
+def scatter_plan(data: DTensor, ids: DTensor) -> Tuple[Tuple, Tuple, Tuple]:
+    """(the data's placements for the scatter, the ids', the summed
+    table's) of a segment sum of ``data`` rows by ``ids`` (module
+    docstring), one per mesh dim: where either splits the rows both take
+    the ids' split, or the data's where the ids are whole (a local chunk
+    of the ids, no collective), and the table is a ``Partial`` sum there;
+    elsewhere the data's feature split (or ``Partial``) carries over."""
+    data_in, ids_in, out = [], [], []
+    for ip, dp in zip(ids.placements, data.placements):
+        if isinstance(ip, Shard) or (isinstance(dp, Shard) and dp.dim == 0):
+            rows = ip if isinstance(ip, Shard) else dp
+            data_in.append(rows)
+            ids_in.append(rows)
+            out.append(Partial())
+        else:
+            data_in.append(dp)
+            ids_in.append(Replicate())
+            out.append(dp)
+    return tuple(data_in), tuple(ids_in), tuple(out)
+
+
+def node_placements(mesh, n: int, summed: Sequence) -> Tuple:
+    """Where a summed (n, ...) table goes: on the mesh dims where it is a
+    ``Partial`` sum, rows split over them when n divides by their sizes'
+    product (a reduce-scatter), else whole (an all-reduce); the other
+    placements kept."""
+    dims = [m for m, p in enumerate(summed) if isinstance(p, Partial)]
+    parts = math.prod(mesh.size(m) for m in dims)
+    rows = Shard(0) if n % parts == 0 else Replicate()
+    return tuple(rows if isinstance(p, Partial) else p for p in summed)
