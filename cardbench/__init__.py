@@ -1,0 +1,1 @@
+"""Benchmark of the PyTorch and CUDA port (``repro_torch``); see ``run.py``."""
